@@ -1,0 +1,101 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Every `srvp_tpu_torch/csrc/*.cu` file is compiled for sm_90a (Hopper; the
+`a` target also admits wgmma and setmaxnreg) into an object file, all
+sources in parallel, and the objects are linked into
+`build/kernels/libsrvp_kernels.so` at the repository root. The sources
+expose plain C functions, so no PyTorch headers are compiled and a build
+takes seconds. Nothing here runs at import time: the library is built on the
+first call of `load_library()` and rebuilt when a source is newer than it.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+LIB_PATH = BUILD_DIR / "libsrvp_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_lib = None
+
+
+def nvcc_path():
+    """nvcc from the CUDA toolkit that torch found (CUDA_HOME), else PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _stale():
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in sources())
+
+
+def build(force=False, verbose=False):
+    """Compiles csrc/*.cu (one nvcc per source, all at once) and links the
+    shared library. Returns its path. `verbose` adds ptxas's register and
+    shared-memory report to the output."""
+    if not force and not _stale():
+        return LIB_PATH
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ["-Xptxas", "-v"] if verbose else []
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, *extra, "-c", str(src),
+               "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        if verbose and out:
+            print(out, flush=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}.tmp"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+            *[str(obj) for _, obj, _ in jobs]]
+    proc = subprocess.run(link, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{' '.join(link)}\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, LIB_PATH)
+    return LIB_PATH
+
+
+def load_library():
+    """The kernel library, built on first use, with its C signatures set."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.srvp_prior_rollout.argtypes = [p, p, i, i, p, p, p, i, i, i, i, i,
+                                           i, i, p]
+        lib.srvp_prior_rollout.restype = i
+        _lib = lib
+    return _lib

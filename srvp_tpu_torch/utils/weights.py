@@ -1,0 +1,157 @@
+"""Loads JAX srvp_tpu checkpoints into the port's modules.
+
+JAX parameters are nested dicts/lists (pytrees); a `model.npz` written by the
+JAX package's checkpointing holds each leaf under its key path as printed by
+`jax.tree_util.keystr`, e.g. "['params']['encoder']['stages'][0][0]['conv']
+['kernel']". `load_jax_model_npz` parses those paths back into nested
+containers without jax, and `state_dict_from_jax` turns the pytrees into the
+port's state_dict (the reference checkpoint's key names):
+
+  * conv kernels HWIO -> OIHW
+  * convT kernels: stored spatially pre-flipped in JAX, so un-flip, then
+    (kh, kw, Cin, Cout) -> (Cin, Cout, kh, kw)
+  * linear kernels (in, out) -> weight (out, in)
+  * LSTM w_ih / w_hh (in, 4h) -> (4h, in)
+  * batch norm scale/bias -> weight/bias; state mean/var -> running stats
+"""
+
+import re
+
+import numpy as np
+import torch
+
+from srvp_tpu_torch.models.conv import decoder_spec, encoder_spec
+from srvp_tpu_torch.models.layers import is_raw
+
+_KEY_PART = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]")
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _conv_w(kernel):
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _convt_w(kernel):
+    return _t(np.asarray(kernel)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def _linear(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _block(sd, prefix, spec, params, state):
+    """One conv block; `state` is only read when the block has BN."""
+    k = params["conv"]["kernel"]
+    w = _convt_w(k) if spec.kind == "convt" else _conv_w(k)
+    sd[f"{prefix}.weight" if is_raw(spec) else f"{prefix}.0.weight"] = w
+    if spec.bn:
+        bn, bn_state = params["bn"], state["bn"]
+        sd[f"{prefix}.1.weight"] = _t(bn["scale"])
+        sd[f"{prefix}.1.bias"] = _t(bn["bias"])
+        sd[f"{prefix}.1.running_mean"] = _t(bn_state["mean"])
+        sd[f"{prefix}.1.running_var"] = _t(bn_state["var"])
+        sd[f"{prefix}.1.num_batches_tracked"] = torch.tensor(0)
+
+
+def _mlp(sd, prefix, layers):
+    for il, layer in enumerate(layers):
+        _linear(sd, f"{prefix}.module.{il}.{0 if il == 0 else 1}", layer)
+
+
+def _at(node, i):
+    """node[i] of a state list; {} where a JAX checkpoint stored nothing
+    (npz files omit the empty state of blocks without BN)."""
+    return node[i] if isinstance(node, list) and i < len(node) else {}
+
+
+def state_dict_from_jax(params, bn_state, cfg):
+    """JAX (params, bn_state) pytrees of numpy arrays -> the port's
+    state_dict (torch tensors)."""
+    sd = {}
+    enc_stages, enc_last = encoder_spec(cfg.archi, cfg.nc, cfg.nhx, cfg.nf)
+    dec_first, dec_stages = decoder_spec(cfg.archi, cfg.nc, cfg.nh_inf + cfg.ny,
+                                         cfg.nf, cfg.skipco)
+    enc_p, enc_s = params["encoder"], bn_state["encoder"]
+    for i, spec in enumerate(enc_stages):
+        _block(sd, f"encoder.conv.{i}", spec, enc_p["stages"][i][0],
+               _at(_at(enc_s["stages"], i), 0))
+    _block(sd, "encoder.last_conv", enc_last, enc_p["last"][0],
+           _at(enc_s["last"], 0))
+    dec_p, dec_s = params["decoder"], bn_state["decoder"]
+    _block(sd, "decoder.first_upconv", dec_first, dec_p["first"][0],
+           _at(dec_s["first"], 0))
+    for i, spec in enumerate(dec_stages):
+        _block(sd, f"decoder.conv.{i}", spec, dec_p["stages"][i][0],
+               _at(_at(dec_s["stages"], i), 0))
+
+    _linear(sd, "w_proj.0", params["w_proj"])
+    _linear(sd, "w_inf.0", params["w_inf"])
+    _mlp(sd, "q_y", params["q_y"])
+    lstm = params["inf_z"]
+    sd["inf_z.weight_ih_l0"] = _t(np.asarray(lstm["w_ih"]).T)
+    sd["inf_z.weight_hh_l0"] = _t(np.asarray(lstm["w_hh"]).T)
+    sd["inf_z.bias_ih_l0"] = _t(lstm["b_ih"])
+    sd["inf_z.bias_hh_l0"] = _t(lstm["b_hh"])
+    _linear(sd, "q_z", params["q_z"])
+    _mlp(sd, "p_z", params["p_z"])
+    _mlp(sd, "dynamics", params["dynamics"])
+    return sd
+
+
+def _parse_keypath(key):
+    parts, pos = [], 0
+    for m in _KEY_PART.finditer(key):
+        if m.start() != pos:
+            break
+        parts.append(m.group(1) if m.group(2) is None else int(m.group(2)))
+        pos = m.end()
+    if pos != len(key) or not parts:
+        raise ValueError(f"not a pytree key path: {key!r}")
+    return parts
+
+
+def _listify(node):
+    """Dicts keyed by ints become lists; indices with no leaves (empty
+    subtrees, which npz files do not store) become empty dicts."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        return [node.get(i, {}) for i in range(max(node) + 1)]
+    return node
+
+
+def unflatten_keypaths(flat):
+    """{keystr path: array} -> nested dicts/lists."""
+    root = {}
+    for key, value in flat.items():
+        parts = _parse_keypath(key)
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return _listify(root)
+
+
+def load_jax_model_npz(path):
+    """Reads a JAX model snapshot (model.npz) -> (params, bn_state) of
+    numpy arrays."""
+    with np.load(path) as arc:
+        tree = unflatten_keypaths({k: arc[k] for k in arc.files})
+    return tree["params"], tree["bn_state"]
+
+
+def load_checkpoint(model, path):
+    """Loads a JAX `.npz` snapshot, or a reference `.pt` state_dict, into
+    `model` (strict: every key must match)."""
+    if str(path).endswith(".pt"):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        params, bn_state = load_jax_model_npz(path)
+        sd = state_dict_from_jax(params, bn_state, model.cfg)
+    model.load_state_dict(sd, strict=True)
+    return model

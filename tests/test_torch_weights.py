@@ -1,0 +1,70 @@
+"""JAX checkpoints into the PyTorch port: state_dict conversion and the
+model.npz reader, held against srvp_tpu.utils.torch_export."""
+
+import numpy as np
+import pytest
+
+import jax
+import torch
+
+from srvp_tpu.utils import checkpoint as ckpt
+from srvp_tpu.utils.torch_export import export_state_dict
+from srvp_tpu_torch.models.srvp import SRVP
+from srvp_tpu_torch.utils import weights
+from tests.torch_port_util import configs, jax_model
+
+
+@pytest.mark.parametrize("skipco", [False, True])
+def test_state_dict_matches_export(skipco):
+    jcfg, cfg = configs(skipco=skipco)
+    params, state = jax_model(jcfg)
+    sd = weights.state_dict_from_jax(params, state, cfg)
+    ref = export_state_dict(params, state, jcfg)
+    assert set(sd) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+    model = SRVP(cfg)
+    model.load_state_dict(sd, strict=True)
+    assert set(model.state_dict()) == set(ref)
+    for k, v in model.state_dict().items():
+        assert tuple(v.shape) == ref[k].shape, k
+
+
+def test_model_npz_roundtrip(tmp_path):
+    jcfg, cfg = configs()
+    params, state = jax_model(jcfg, seed=3)
+    ckpt.save_model(str(tmp_path), "model", params, state)
+    p2, s2 = weights.load_jax_model_npz(tmp_path / "model.npz")
+    flat = jax.tree_util.tree_leaves_with_path((params, state))
+    flat2 = dict(jax.tree_util.tree_leaves_with_path((p2, s2)))
+    assert len(flat) == len(flat2)
+    for path, leaf in flat:
+        np.testing.assert_array_equal(flat2[path], leaf)
+    model = weights.load_checkpoint(SRVP(cfg), tmp_path / "model.npz")
+    ref = export_state_dict(params, state, jcfg)
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), ref[k], err_msg=k)
+
+
+def test_reference_pt_state_dict_loads(tmp_path):
+    _, cfg = configs()
+    torch.manual_seed(0)
+    src = SRVP(cfg)
+    torch.save(src.state_dict(), tmp_path / "model.pt")
+    model = weights.load_checkpoint(SRVP(cfg), tmp_path / "model.pt")
+    for k, v in src.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+
+
+def test_keypath_parser():
+    tree = weights.unflatten_keypaths({
+        "['a'][0]['k']": 1, "['a'][2]['k']": 2, "['b']": 3})
+    assert tree == {"a": [{"k": 1}, {}, {"k": 2}], "b": 3}
+    with pytest.raises(ValueError):
+        weights.unflatten_keypaths({"a.b": 1})
+
+
+def test_vgg_is_not_ported():
+    _, cfg = configs(archi="vgg")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SRVP(cfg)
