@@ -1,0 +1,160 @@
+"""Training CLI flags (counterpart of srvp_tpu/args.py): the flags that the
+port's trainer honours, with the JAX package's names and defaults, plus
+`--device` and `--fused_rollout`. Flags of parts that are not ported yet are
+accepted and rejected by `check_ported` with a pointer to ROADMAP.md."""
+
+import argparse
+
+ARCH_TYPES = ["dcgan", "vgg"]
+DATASETS = ["smmnist", "kth", "human", "bair"]
+PRECISIONS = ["float32", "bfloat16"]
+
+
+def create_args():
+    p = argparse.ArgumentParser(
+        prog="Stochastic Latent Residual Video Prediction (training, GPU)",
+        description="Trains SRVP on one GPU (PyTorch/CUDA).")
+    p.add_argument("--seed", type=int, metavar="SEED", default=None,
+                   help="Manual seed. If None, it is chosen randomly.")
+    p.add_argument("--save_path", type=str, metavar="PATH", required=True,
+                   help="Path where models should be saved.")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' runs the plain PyTorch path.")
+    p.add_argument("--fused_rollout", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="Training rollout through its CUDA kernels "
+                        "(auto/on) or the eager per-step loop (off).")
+
+    g = p.add_argument_group("Not ported yet (ROADMAP.md)")
+    g.add_argument("--precision", type=str, default="float32",
+                   choices=PRECISIONS, help="Only float32 is ported.")
+    g.add_argument("--torch_amp", action="store_true",
+                   help="Not ported (bfloat16 compute).")
+    g.add_argument("--apex_amp", action="store_true",
+                   help="Not ported (bfloat16 compute).")
+    g.add_argument("--n_devices", type=int, metavar="NB", default=None,
+                   help="Only 1 is ported: training runs on one card.")
+    g.add_argument("--resume", action="store_true",
+                   help="Not ported (full train-state checkpoints).")
+    g.add_argument("--steps_per_dispatch", type=int, metavar="K", default=1,
+                   help="Only 1 is ported.")
+    g.add_argument("--no_device_compose", action="store_true",
+                   help="Not ported: Moving MNIST frames are always "
+                        "composited on the device.")
+
+    m = p.add_argument_group("Model Configuration")
+    m.add_argument("--nhx", type=int, metavar="SIZE", default=128,
+                   help="Size of vectors encoding frames.")
+    m.add_argument("--ny", type=int, metavar="SIZE", required=True,
+                   help="Size of the state-space variable (y).")
+    m.add_argument("--nz", type=int, metavar="SIZE", required=True,
+                   help="Size of the auxiliary random variable (z).")
+    m.add_argument("--n_euler_steps", type=int, metavar="STEPS", default=1,
+                   help="Euler steps per frame in training and validation.")
+    m.add_argument("--nt_inf", type=int, metavar="STEPS", required=True,
+                   help="Number of time steps used to infer y at t = 1.")
+    m.add_argument("--obs_scale", type=float, metavar="VAR", default=1,
+                   help="Standard deviation of the observation model.")
+    m.add_argument("--archi", type=str, metavar="ARCH", default="dcgan",
+                   choices=ARCH_TYPES, help="Encoder and decoder "
+                   "architecture (vgg is not ported yet).")
+    m.add_argument("--skipco", action="store_true",
+                   help="Skip connections from encoders to decoders.")
+    m.add_argument("--nf", type=int, metavar="FILTERS", default=64,
+                   help="Filters of the first encoder and last decoder "
+                        "layers.")
+    m.add_argument("--nh_res", type=int, metavar="SIZE", default=512,
+                   help="Hidden size of the temporal model.")
+    m.add_argument("--nlayers_res", type=int, metavar="NB", default=4,
+                   help="Layers of the temporal model.")
+    m.add_argument("--nh_inf", type=int, metavar="SIZE", default=256,
+                   help="Hidden size of the inference networks.")
+    m.add_argument("--nlayers_inf", type=int, metavar="NB", default=3,
+                   help="Layers of the inference networks.")
+    m.add_argument("--res_gain", type=float, metavar="GAIN", default=1.41,
+                   help="Initialisation gain of the temporal model.")
+
+    o = p.add_argument_group("Optimization Configuration")
+    o.add_argument("--beta_y", type=float, metavar="BETA", default=1,
+                   help="Weight of the KL term of y_1.")
+    o.add_argument("--beta_z", type=float, metavar="BETA", default=1,
+                   help="Weight of the KL term of z.")
+    o.add_argument("--l2_res", type=float, metavar="LAMBDA", default=1,
+                   help="Weight of the L2 regularisation of residuals.")
+    o.add_argument("--batch_size", type=int, metavar="SIZE", default=128,
+                   help="Training batch size.")
+    o.add_argument("--lr", type=float, metavar="LR", default=0.0003,
+                   help="Learning rate of the Adam optimizer.")
+    o.add_argument("--lr_scheduling_burnin", type=int, metavar="STEPS",
+                   default=1000000,
+                   help="Optimisation steps before the lr decays.")
+    o.add_argument("--lr_scheduling_n_iter", type=int, metavar="STEPS",
+                   default=100000, help="Steps of the linear lr decay.")
+
+    d = p.add_argument_group("Dataset")
+    d.add_argument("--dataset", type=str, metavar="DATASET", required=True,
+                   choices=DATASETS,
+                   help="Dataset name (only smmnist is ported).")
+    d.add_argument("--data_dir", type=str, metavar="DIR", required=True,
+                   help="Data directory.")
+    d.add_argument("--seq_len", type=int, metavar="LEN", required=True,
+                   help="Length of training sequences.")
+    d.add_argument("--ndigits", type=int, metavar="DIGITS", default=2,
+                   help="Moving MNIST: number of digits.")
+    d.add_argument("--max_speed", type=int, metavar="SPEED", default=4,
+                   help="Moving MNIST: maximum digit speed.")
+    d.add_argument("--deterministic", action="store_true",
+                   help="Moving MNIST: deterministic bounces.")
+    d.add_argument("--nx", type=int, metavar="SIZE", default=64,
+                   help="Frame size (width and height).")
+    d.add_argument("--nc", type=int, metavar="CHANNELS", required=True,
+                   help="Number of color channels.")
+    d.add_argument("--allow_synthetic", action="store_true",
+                   help="Moving MNIST: procedural digits when the MNIST "
+                        "archive is absent (smoke tests only).")
+
+    e = p.add_argument_group("Evaluation and logging")
+    e.add_argument("--n_iter", type=int, metavar="STEPS", default=None,
+                   help="Optimisation steps (default: burn-in + decay).")
+    e.add_argument("--log_interval", type=int, metavar="STEPS", default=100,
+                   help="Steps between metric log lines.")
+    e.add_argument("--val_interval", type=int, metavar="STEPS",
+                   default=20000,
+                   help="Steps between validations / best-model saves.")
+    e.add_argument("--chkpt_interval", type=int, metavar="STEPS",
+                   default=None,
+                   help="If set, save the model every given steps.")
+    e.add_argument("--batch_size_test", type=int, metavar="SIZE", default=16,
+                   help="Validation batch size.")
+    e.add_argument("--n_iter_test", type=int, metavar="STEPS", default=25,
+                   help="Batches per validation.")
+    e.add_argument("--nt_cond", type=int, metavar="STEPS", required=True,
+                   help="Conditioning frames at test time (>= nt_inf).")
+    e.add_argument("--n_samples_test", type=int, metavar="NB", default=100,
+                   help="Predictions per video during validation.")
+    e.add_argument("--val_samples_chunk", type=int, metavar="NB", default=25,
+                   help="Validation samples folded into one batch.")
+    e.add_argument("--seq_len_test", type=int, metavar="LEN", default=None,
+                   help="Length of validation sequences (default: "
+                        "seq_len).")
+    return p
+
+
+def check_ported(opt):
+    """Raises NotImplementedError for a flag whose part is not ported."""
+    todo = {
+        "--precision bfloat16": opt.precision != "float32",
+        "--torch_amp": opt.torch_amp,
+        "--apex_amp": opt.apex_amp,
+        "--resume": opt.resume,
+        "--steps_per_dispatch > 1": opt.steps_per_dispatch != 1,
+        "--no_device_compose": opt.no_device_compose,
+        "--n_devices > 1": opt.n_devices not in (None, 1),
+        f"--dataset {opt.dataset}": opt.dataset != "smmnist",
+        "--archi vgg": opt.archi == "vgg",
+    }
+    for flag, asked in todo.items():
+        if asked:
+            raise NotImplementedError(
+                f"{flag} is not ported to the PyTorch trainer yet "
+                "(ROADMAP.md, Queue 1)")

@@ -1,0 +1,573 @@
+// Training-mode latent rollout for Hopper (sm_90a): forward and backward,
+// fp32 on CUDA cores.
+//
+// Replaces the Pallas TPU kernels of srvp_tpu/ops/pallas/rollout_train.py:
+// `_fwd_kernel` (called by `fwd_impl`) and `_bwd_kernel` (`bwd_impl`), tied
+// there by jax.custom_vjp and here by kernels/rollout_train.py's
+// torch.autograd.Function. Per substep k of K, for each batch row:
+//     q_k = hxz_k W_q + b_q
+//     z_k = k % o == 0 ? q_k[:nz] + eps_k * (softplus(q_k[nz:]) + 1e-8) : z_{k-1}
+//     p_k = p_z(y_k);   r_k = dt * dynamics([y_k, z_k]);   y_{k+1} = y_k + r_k
+// p_z and dynamics are pre-activation ReLU MLPs. The forward writes ys, res,
+// q, p and z per substep and stashes the hidden pre-activations of both
+// MLPs. The backward runs in reverse time, carries dL/dy and the gradient of
+// a z reused over the o substeps of a frame, and produces dL/dy_0, dL/dhxz
+// and every weight and bias gradient; eps is noise and gets none.
+//
+// What bounds it on the H100: arithmetic. At the flagship widths a row does
+// 1,120,256 multiply-adds per substep (q 256->40, p_z 20->512->512->512->40,
+// dynamics 40->512->512->512->20): 4.0 GFLOP forward at B=128, K=14, and
+// twice that backward (the input gradients and the weight gradients).
+//
+// Design. The TPU kernels pin the weights in VMEM and run the substeps as a
+// sequential grid axis with the state in scratch. Here:
+//  * forward: one launch; one block per tile of R rows with the substep loop
+//    inside the block, the tile's state and activations in shared memory and
+//    the weights streamed from L2, as rollout.cu (tile_mlp.cuh);
+//  * backward, carry pass: one launch of the same shape walking the substeps
+//    backwards. Its products are g W^T, read from the weights in their
+//    (out, in) layout. It writes every layer's output cotangent g_l for every
+//    (substep, row) to device memory (G buffers), plus dL/dhxz and dL/dy_0;
+//  * backward, weight-gradient pass: dW_l = sum over the K*B (substep, row)
+//    pairs of g_l^T a_{l-1}, db_l = sum g_l. The TPU kernel accumulates dW in
+//    VMEM across its sequential grid; on the GPU blocks run at once, so each
+//    64 x 64 tile of a dW is owned by one block that sums over all K*B rows
+//    in a fixed order: deterministic, no atomics. a_{l-1} is the layer's
+//    input: hxz, [y_k, z_k], or the ReLU of a stashed pre-activation.
+// There is no 128-lane padding and no loc/raw repacking of the q head: the
+// kernels work on the true widths.
+
+#include "tile_mlp.cuh"
+
+namespace {
+
+// Sum of meta[col] over layers [0, n): a width sum of an MLP's layers.
+__device__ __forceinline__ int width_sum(const int* meta, int n, int col) {
+  int s = 0;
+  for (int l = 0; l < n; ++l) s += meta[4 * l + col];
+  return s;
+}
+
+// Forward MLP over the tile. The hidden pre-activations (output of every
+// layer but the last) go to `stash` at row stride `ld`, one layer after the
+// other; then ReLU is applied in shared memory for the next layer. Returns
+// the buffer that holds the output (buf0 or buf1).
+template <int R>
+__device__ const float* mlp_fwd_stash(const float* __restrict__ params,
+                                      const int* __restrict__ meta, int n,
+                                      const float* hin, float* buf0,
+                                      float* buf1, float* red, float* stash,
+                                      int ld, int row0, int B) {
+  const int tid = threadIdx.x;
+  const float* h = hin;
+  float* o = buf0;
+  int off = 0;
+  for (int l = 0; l < n; ++l) {
+    dense<R>(params, meta + 4 * l, h, o, false, red);
+    if (l < n - 1) {
+      const int dout = meta[4 * l + 1];
+      for (int idx = tid; idx < R * dout; idx += kThreads) {
+        const int r = idx / dout, j = idx % dout;
+        const int row = row0 + r;
+        const float v = o[j * R + r];
+        if (row < B) stash[(size_t)row * ld + off + j] = v;
+        o[j * R + r] = fmaxf(v, 0.0f);
+      }
+      off += dout;
+      __syncthreads();
+    }
+    h = o;
+    o = (o == buf0) ? buf1 : buf0;
+  }
+  return h;
+}
+
+// Writes the tile's [n][R] shared buffer to rows of a (B, ld) slab at column
+// offset `off`.
+template <int R>
+__device__ void store_tile(const float* s, int n, float* dst, int ld, int off,
+                           int row0, int B) {
+  for (int idx = threadIdx.x; idx < R * n; idx += kThreads) {
+    const int r = idx / n, j = idx % n;
+    const int row = row0 + r;
+    if (row < B) dst[(size_t)row * ld + off + j] = s[j * R + r];
+  }
+}
+
+// Reads rows of a (B, ld) slab at column offset `off` into an [n][R] shared
+// buffer; rows past B read as 0.
+template <int R>
+__device__ void load_tile(const float* src, int n, int ld, int off, float* s,
+                          int row0, int B) {
+  for (int idx = threadIdx.x; idx < R * n; idx += kThreads) {
+    const int r = idx / n, j = idx % n;
+    const int row = row0 + r;
+    s[j * R + r] = row < B ? src[(size_t)row * ld + off + j] : 0.0f;
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+train_rollout_fwd_kernel(const float* __restrict__ params,
+                         const int* __restrict__ meta, int n_pz, int n_dyn,
+                         const float* __restrict__ y0,
+                         const float* __restrict__ hxz,
+                         const float* __restrict__ eps, float* __restrict__ ys,
+                         float* __restrict__ res, float* __restrict__ qpar,
+                         float* __restrict__ ppar, float* __restrict__ zs,
+                         float* __restrict__ stash_p,
+                         float* __restrict__ stash_d, int B, int ny, int nz,
+                         int nh_inf, int K, int o, float dt, int hmax) {
+  extern __shared__ float4 smem4[];
+  float* yz = reinterpret_cast<float*>(smem4);  // [ny + nz][R]: y then z
+  float* hx = yz + (ny + nz) * R;               // [nh_inf][R]
+  float* q = hx + nh_inf * R;                   // [2 nz][R]
+  float* buf0 = q + 2 * nz * R;                 // [hmax][R]
+  float* buf1 = buf0 + hmax * R;                // [hmax][R]
+  float* red = buf1 + hmax * R;                 // [4 kThreads][R]
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * R;
+  const int* meta_p = meta + 4;
+  const int* meta_d = meta + 4 * (1 + n_pz);
+  // stash row widths: every layer's output but the last
+  const int sw_p = width_sum(meta_p, n_pz - 1, 1);
+  const int sw_d = width_sum(meta_d, n_dyn - 1, 1);
+  const int nq = 2 * nz;
+
+  for (int idx = tid; idx < R * (ny + nz); idx += kThreads) {
+    const int r = idx / (ny + nz), k = idx % (ny + nz);
+    const int row = row0 + r;
+    yz[k * R + r] = (k < ny && row < B) ? y0[(size_t)row * ny + k] : 0.0f;
+  }
+
+  for (int t = 0; t < K; ++t) {
+    const size_t step = (size_t)t * B;
+    load_tile<R>(hxz + step * nh_inf, nh_inf, nh_inf, 0, hx, row0, B);
+    __syncthreads();
+    dense<R>(params, meta, hx, q, false, red);
+    store_tile<R>(q, nq, qpar + step * nq, nq, 0, row0, B);
+    if (t % o == 0) {
+      for (int idx = tid; idx < R * nz; idx += kThreads) {
+        const int r = idx / nz, k = idx % nz;
+        const int row = row0 + r;
+        const float e = row < B ? eps[(step + row) * nz + k] : 0.0f;
+        yz[(ny + k) * R + r] =
+            q[k * R + r] + e * (softplus(q[(nz + k) * R + r]) + 1e-8f);
+      }
+      __syncthreads();
+    }
+    store_tile<R>(yz + ny * R, nz, zs + step * nz, nz, 0, row0, B);
+
+    const float* p = mlp_fwd_stash<R>(params, meta_p, n_pz, yz, buf0, buf1,
+                                      red, stash_p + step * sw_p, sw_p, row0,
+                                      B);
+    store_tile<R>(p, nq, ppar + step * nq, nq, 0, row0, B);
+    __syncthreads();
+    const float* rr = mlp_fwd_stash<R>(params, meta_d, n_dyn, yz, buf0, buf1,
+                                       red, stash_d + step * sw_d, sw_d,
+                                       row0, B);
+    for (int idx = tid; idx < R * ny; idx += kThreads) {
+      const int r = idx / ny, k = idx % ny;
+      const int row = row0 + r;
+      const float rv = dt * rr[k * R + r];
+      const float y = yz[k * R + r] + rv;
+      yz[k * R + r] = y;
+      if (row < B) {
+        ys[(step + row) * ny + k] = y;
+        res[(step + row) * ny + k] = rv;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Backward through an MLP over the tile. `meta` rows are the backward ones,
+// {dout, din, w_off, -1} with W in (out, in) layout, so dense() computes
+// g W^T. On entry `g` holds the output cotangent; every layer's output
+// cotangent is written to G (row stride g_ld, layers one after the other),
+// ReLU masks come from the stashed pre-activations, and the input cotangent
+// lands in `gin`. `g` and `other` are clobbered.
+template <int R>
+__device__ void mlp_bwd(const float* __restrict__ params,
+                        const int* __restrict__ meta, int n, float* g,
+                        float* other, float* gin, float* red,
+                        const float* __restrict__ stash, int s_ld, float* G,
+                        int g_ld, int row0, int B) {
+  const int tid = threadIdx.x;
+  float* cur = g;
+  for (int l = n - 1; l >= 0; --l) {
+    const int dout = meta[4 * l + 0], din = meta[4 * l + 1];
+    const int off = width_sum(meta, l, 0);  // G / stash column of layer l
+    store_tile<R>(cur, dout, G, g_ld, off, row0, B);
+    float* dst = l == 0 ? gin : other;
+    dense<R>(params, meta + 4 * l, cur, dst, false, red);
+    if (l > 0) {
+      // ReLU' of layer l-1's pre-activation, stashed at column off - din
+      for (int idx = tid; idx < R * din; idx += kThreads) {
+        const int r = idx / din, i = idx % din;
+        const int row = row0 + r;
+        const float h =
+            row < B ? stash[(size_t)row * s_ld + off - din + i] : 0.0f;
+        if (!(h > 0.0f)) dst[i * R + r] = 0.0f;
+      }
+      __syncthreads();
+      other = cur;
+      cur = dst;
+    }
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+train_rollout_bwd_carry_kernel(
+    const float* __restrict__ params, const int* __restrict__ meta, int n_pz,
+    int n_dyn, const float* __restrict__ eps, const float* __restrict__ qpar,
+    const float* __restrict__ stash_p, const float* __restrict__ stash_d,
+    const float* __restrict__ cot_ys, const float* __restrict__ cot_res,
+    const float* __restrict__ cot_qpar, const float* __restrict__ cot_ppar,
+    const float* __restrict__ cot_zs, float* __restrict__ g_q,
+    float* __restrict__ g_pz, float* __restrict__ g_dyn,
+    float* __restrict__ g_y0, float* __restrict__ g_hxz, int B, int ny,
+    int nz, int nh_inf, int K, int o, float dt, int hmax) {
+  extern __shared__ float4 smem4[];
+  float* gy = reinterpret_cast<float*>(smem4);  // [ny][R] dL/dy carried
+  float* gz = gy + ny * R;                      // [nz][R] reused-z carry
+  float* gyz = gz + nz * R;                     // [ny + nz][R]
+  float* gyp = gyz + (ny + nz) * R;             // [ny][R]
+  float* gq = gyp + ny * R;                     // [2 nz][R]
+  float* bufA = gq + 2 * nz * R;                // [hmax][R]
+  float* bufB = bufA + hmax * R;                // [hmax][R]
+  float* red = bufB + hmax * R;                 // [4 kThreads][R]
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * R;
+  const int* meta_p = meta + 4;
+  const int* meta_d = meta + 4 * (1 + n_pz);
+  const int sw_p = width_sum(meta_p, n_pz - 1, 0);
+  const int sw_d = width_sum(meta_d, n_dyn - 1, 0);
+  const int gw_p = width_sum(meta_p, n_pz, 0);
+  const int gw_d = width_sum(meta_d, n_dyn, 0);
+  const int nq = 2 * nz;
+
+  for (int idx = tid; idx < R * (ny + nz); idx += kThreads) gy[idx] = 0.0f;
+
+  for (int k = K - 1; k >= 0; --k) {
+    const size_t step = (size_t)k * B;
+    __syncthreads();
+    // y_{k+1} = y_k + res_k and res_k = dt * dynamics(...): the dynamics
+    // output cotangent is dt * (dL/dres_k + dL/dy_{k+1})
+    for (int idx = tid; idx < R * ny; idx += kThreads) {
+      const int r = idx / ny, j = idx % ny;
+      const int row = row0 + r;
+      float c_ys = 0.0f, c_res = 0.0f;
+      if (row < B) {
+        c_ys = cot_ys[(step + row) * ny + j];
+        c_res = cot_res[(step + row) * ny + j];
+      }
+      const float g1 = gy[j * R + r] + c_ys;
+      gy[j * R + r] = g1;
+      bufA[j * R + r] = dt * (c_res + g1);
+    }
+    __syncthreads();
+    mlp_bwd<R>(params, meta_d, n_dyn, bufA, bufB, gyz, red,
+               stash_d + step * sw_d, sw_d, g_dyn + step * gw_d, gw_d, row0,
+               B);
+
+    // z_k: its gradient from the dynamics, from the returned zs, and the one
+    // carried from later substeps that reused it. A substep that drew z
+    // passes it to q through the reparameterisation; one that reused z
+    // carries it to the substep before.
+    const bool is_new = k % o == 0;
+    for (int idx = tid; idx < R * nz; idx += kThreads) {
+      const int r = idx / nz, j = idx % nz;
+      const int row = row0 + r;
+      float gl = 0.0f, gr = 0.0f, carry = 0.0f;
+      if (row < B) {
+        const size_t iz = (step + row) * nz + j;
+        const size_t iq = (step + row) * nq + j;
+        const float gzt = gyz[(ny + j) * R + r] + gz[j * R + r] + cot_zs[iz];
+        if (is_new) {
+          const float raw = qpar[iq + nz];
+          gl = gzt;
+          gr = gzt * eps[iz] * (1.0f / (1.0f + expf(-raw)));
+        } else {
+          carry = gzt;
+        }
+        gl += cot_qpar[iq];
+        gr += cot_qpar[iq + nz];
+      }
+      gq[j * R + r] = gl;
+      gq[(nz + j) * R + r] = gr;
+      gz[j * R + r] = carry;
+    }
+    __syncthreads();
+    store_tile<R>(gq, nq, g_q + step * nq, nq, 0, row0, B);
+    dense<R>(params, meta, gq, bufA, false, red);
+    store_tile<R>(bufA, nh_inf, g_hxz + step * nh_inf, nh_inf, 0, row0, B);
+    __syncthreads();
+
+    load_tile<R>(cot_ppar + step * nq, nq, nq, 0, bufA, row0, B);
+    __syncthreads();
+    mlp_bwd<R>(params, meta_p, n_pz, bufA, bufB, gyp, red,
+               stash_p + step * sw_p, sw_p, g_pz + step * gw_p, gw_p, row0,
+               B);
+    for (int idx = tid; idx < R * ny; idx += kThreads)
+      gy[idx] = (gy[idx] + gyz[idx]) + gyp[idx];
+  }
+  __syncthreads();
+  store_tile<R>(gy, ny, g_y0, ny, 0, row0, B);
+}
+
+// Weight-gradient pass. Job j (int32 row of kJobW) is one linear layer:
+//   {a_src, a_ld, a_off, a_relu, g_src, g_ld, g_off, w_off, b_off, din,
+//    dout, tile0}
+// dW (dout, din) row-major at grads + w_off, db (dout) at grads + b_off,
+// dW[o][i] = sum_n G[n][g_off + o] * act(A[n][a_off + i]), db[o] = sum_n
+// G[n][g_off + o], over the N = K*B (substep, row) pairs. Each block owns one
+// kTile x kTile tile of one dW (tiles of job j start at block tile0) and
+// sums over n in a fixed order: FMAs within each chunk of kTK rows, the
+// chunks Kahan-summed, so 1,792-term sums with cancellation keep the
+// accuracy of a library GEMM's blocked sums.
+constexpr int kJobW = 12;
+
+// sum += x with Kahan's compensation c: the error of a long fp32 sum stays
+// near one rounding instead of growing with its length (nvcc keeps the
+// order: no fast-math flags).
+__device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
+  const float y = x - c;
+  const float t = sum + y;
+  c = (t - sum) - y;
+  sum = t;
+}
+
+constexpr int kTile = 64;
+constexpr int kTK = 16;
+constexpr int kWgThreads = 256;
+
+__global__ void __launch_bounds__(kWgThreads)
+train_rollout_wgrad_kernel(const int* __restrict__ jobs, int n_jobs,
+                           const float* __restrict__ a0,
+                           const float* __restrict__ a1,
+                           const float* __restrict__ a2,
+                           const float* __restrict__ a3,
+                           const float* __restrict__ g0,
+                           const float* __restrict__ g1,
+                           const float* __restrict__ g2,
+                           float* __restrict__ grads, int N) {
+  __shared__ __align__(16) float gs[kTK][kTile];
+  __shared__ __align__(16) float as[kTK][kTile];
+  int j = 0;
+  while (j + 1 < n_jobs && (int)blockIdx.x >= jobs[(j + 1) * kJobW + 11]) ++j;
+  const int* job = jobs + j * kJobW;
+  const float* A = job[0] == 0 ? a0 : job[0] == 1 ? a1 : job[0] == 2 ? a2 : a3;
+  const float* G = job[4] == 0 ? g0 : job[4] == 1 ? g1 : g2;
+  const int a_ld = job[1], a_off = job[2], a_relu = job[3];
+  const int g_ld = job[5], g_off = job[6];
+  const int din = job[9], dout = job[10];
+  const int tiles_i = (din + kTile - 1) / kTile;
+  const int tile = blockIdx.x - job[11];
+  const int o0 = (tile / tiles_i) * kTile, i0 = (tile % tiles_i) * kTile;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const bool with_bias = (tile % tiles_i) == 0 && tid < kTile;
+
+  float acc[4][4], comp[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = comp[a][b] = 0.0f;
+  float db = 0.0f, db_comp = 0.0f;
+
+  for (int n0 = 0; n0 < N; n0 += kTK) {
+#pragma unroll
+    for (int q = 0; q < kTK * kTile / kWgThreads; ++q) {
+      const int e = tid + q * kWgThreads;
+      const int kk = e / kTile, c = e % kTile;
+      const int n = n0 + kk;
+      float gv = 0.0f, av = 0.0f;
+      if (n < N) {
+        if (o0 + c < dout) gv = G[(size_t)n * g_ld + g_off + o0 + c];
+        if (i0 + c < din) av = A[(size_t)n * a_ld + a_off + i0 + c];
+      }
+      gs[kk][c] = gv;
+      as[kk][c] = a_relu ? fmaxf(av, 0.0f) : av;
+    }
+    __syncthreads();
+    float part[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) part[a][b] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kTK; ++kk) {
+      const float4 gv = *reinterpret_cast<const float4*>(&gs[kk][ty * 4]);
+      const float4 av = *reinterpret_cast<const float4*>(&as[kk][tx * 4]);
+      const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          part[a][b] = fmaf(g4[a], a4[b], part[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) kahan_add(acc[a][b], comp[a][b], part[a][b]);
+    if (with_bias) {
+      float dpart = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kTK; ++kk) dpart += gs[kk][tid];
+      kahan_add(db, db_comp, dpart);
+    }
+    __syncthreads();
+  }
+
+  float* dW = grads + job[7];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int oo = o0 + ty * 4 + a;
+    if (oo >= dout) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int ii = i0 + tx * 4 + b;
+      if (ii < din) dW[(size_t)oo * din + ii] = acc[a][b];
+    }
+  }
+  if (with_bias && o0 + tid < dout) grads[job[8] + o0 + tid] = db;
+}
+
+template <int R>
+size_t fwd_smem(int ny, int nz, int nh_inf, int hmax) {
+  return sizeof(float) * R *
+         (ny + nz + nh_inf + 2 * nz + 2 * hmax + 4 * kThreads);
+}
+
+template <int R>
+size_t bwd_smem(int ny, int nz, int hmax) {
+  return sizeof(float) * R *
+         (ny + nz + (ny + nz) + ny + 2 * nz + 2 * hmax + 4 * kThreads);
+}
+
+template <int R>
+cudaError_t launch_fwd(const float* params, const int* meta, int n_pz,
+                       int n_dyn, const float* y0, const float* hxz,
+                       const float* eps, float* ys, float* res, float* qpar,
+                       float* ppar, float* zs, float* stash_p, float* stash_d,
+                       int B, int ny, int nz, int nh_inf, int K, int o,
+                       int hmax, cudaStream_t stream) {
+  const size_t smem = fwd_smem<R>(ny, nz, nh_inf, hmax);
+  cudaError_t err = cudaFuncSetAttribute(
+      train_rollout_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  train_rollout_fwd_kernel<R><<<(B + R - 1) / R, kThreads, smem, stream>>>(
+      params, meta, n_pz, n_dyn, y0, hxz, eps, ys, res, qpar, ppar, zs,
+      stash_p, stash_d, B, ny, nz, nh_inf, K, o, 1.0f / (float)o, hmax);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_bwd(const float* params, const int* meta, int n_pz,
+                       int n_dyn, const float* eps, const float* qpar,
+                       const float* stash_p, const float* stash_d,
+                       const float* cot_ys, const float* cot_res,
+                       const float* cot_qpar, const float* cot_ppar,
+                       const float* cot_zs, float* g_q, float* g_pz,
+                       float* g_dyn, float* g_y0, float* g_hxz, int B, int ny,
+                       int nz, int nh_inf, int K, int o, int hmax,
+                       cudaStream_t stream) {
+  const size_t smem = bwd_smem<R>(ny, nz, hmax);
+  cudaError_t err = cudaFuncSetAttribute(
+      train_rollout_bwd_carry_kernel<R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  train_rollout_bwd_carry_kernel<R>
+      <<<(B + R - 1) / R, kThreads, smem, stream>>>(
+          params, meta, n_pz, n_dyn, eps, qpar, stash_p, stash_d, cot_ys,
+          cot_res, cot_qpar, cot_ppar, cot_zs, g_q, g_pz, g_dyn, g_y0, g_hxz,
+          B, ny, nz, nh_inf, K, o, 1.0f / (float)o, hmax);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+#define F(x) static_cast<float*>(x)
+#define CF(x) static_cast<const float*>(x)
+
+// C entry points, bound with ctypes. Every tensor is fp32 (int32 for meta and
+// jobs), contiguous and on the device. The launches run on `stream`.
+//
+// Forward. params: every layer's W^T (in, out) and bias, q first, then p_z,
+// then dynamics; meta: int32 {din, dout, w_off, b_off} per layer in that
+// order. y0 (B, ny), hxz (K, B, nh_inf), eps (K, B, nz); outputs ys, res
+// (K, B, ny), qpar, ppar (K, B, 2 nz), zs (K, B, nz), stash_p / stash_d
+// (K, B, sum of the hidden widths). rows_per_block is 4, 8 or 16; hmax is the
+// widest layer output. Returns the launch's cudaError_t (0 on success).
+extern "C" int srvp_train_rollout_fwd(
+    const void* params, const void* meta, int n_pz, int n_dyn,
+    const void* y0, const void* hxz, const void* eps, void* ys, void* res,
+    void* qpar, void* ppar, void* zs, void* stash_p, void* stash_d, int B,
+    int ny, int nz, int nh_inf, int K, int o, int hmax, int rows_per_block,
+    void* stream) {
+  const float* p = CF(params);
+  const int* m = static_cast<const int*>(meta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH_FWD(R)                                                        \
+  launch_fwd<R>(p, m, n_pz, n_dyn, CF(y0), CF(hxz), CF(eps), F(ys), F(res), \
+                F(qpar), F(ppar), F(zs), F(stash_p), F(stash_d), B, ny, nz, \
+                nh_inf, K, o, hmax, s)
+  switch (rows_per_block) {
+    case 4: return LAUNCH_FWD(4);
+    case 8: return LAUNCH_FWD(8);
+    case 16: return LAUNCH_FWD(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH_FWD
+}
+
+// Backward carry pass. params: the same layers with W in (out, in) layout
+// and no bias; meta: {dout, din, w_off, -1} per layer. Inputs: the forward's
+// eps, qpar and stashes, and the cotangents of its five outputs. Outputs:
+// g_q (K, B, 2 nz), g_pz / g_dyn (K, B, sum of the layer widths): every
+// layer's output cotangent; g_y0 (B, ny); g_hxz (K, B, nh_inf). hmax is the
+// widest layer input or output.
+extern "C" int srvp_train_rollout_bwd(
+    const void* params, const void* meta, int n_pz, int n_dyn,
+    const void* eps, const void* qpar, const void* stash_p,
+    const void* stash_d, const void* cot_ys, const void* cot_res,
+    const void* cot_qpar, const void* cot_ppar, const void* cot_zs,
+    void* g_q, void* g_pz, void* g_dyn, void* g_y0, void* g_hxz, int B,
+    int ny, int nz, int nh_inf, int K, int o, int hmax, int rows_per_block,
+    void* stream) {
+  const float* p = CF(params);
+  const int* m = static_cast<const int*>(meta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LAUNCH_BWD(R)                                                          \
+  launch_bwd<R>(p, m, n_pz, n_dyn, CF(eps), CF(qpar), CF(stash_p),            \
+                CF(stash_d), CF(cot_ys), CF(cot_res), CF(cot_qpar),           \
+                CF(cot_ppar), CF(cot_zs), F(g_q), F(g_pz), F(g_dyn), F(g_y0), \
+                F(g_hxz), B, ny, nz, nh_inf, K, o, hmax, s)
+  switch (rows_per_block) {
+    case 4: return LAUNCH_BWD(4);
+    case 8: return LAUNCH_BWD(8);
+    case 16: return LAUNCH_BWD(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH_BWD
+}
+
+// Backward weight-gradient pass: n_jobs rows of jobs (see the kernel),
+// n_tiles blocks in all; A sources a0..a3 and G sources g0..g2 (K*B = N
+// rows each); grads receives every dW and db.
+extern "C" int srvp_train_rollout_wgrad(
+    const void* jobs, int n_jobs, int n_tiles, const void* a0,
+    const void* a1, const void* a2, const void* a3, const void* g0,
+    const void* g1, const void* g2, void* grads, int N, void* stream) {
+  train_rollout_wgrad_kernel<<<n_tiles, kWgThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(jobs), n_jobs, CF(a0), CF(a1), CF(a2), CF(a3),
+      CF(g0), CF(g1), CF(g2), F(grads), N);
+  return (int)cudaGetLastError();
+}
+
+#undef F
+#undef CF

@@ -11,6 +11,8 @@ import os
 
 import numpy as np
 
+from srvp_tpu_torch.data.base import collate_uint8
+
 
 def archive_path(data_dir, nx, num_digits, deterministic):
     prefix = "" if deterministic else "s"
@@ -28,9 +30,7 @@ def load_test_sequences(data_dir, nx, num_digits, deterministic):
 def collate(videos):
     """uint8 videos [(T, H, W) or (T, H, W, C)] -> float32 (T, B, H, W, C)
     in [0, 1]."""
-    batch = np.stack([v if v.ndim == 4 else v[..., None] for v in videos],
-                     axis=1)
-    return np.ascontiguousarray(batch, dtype=np.float32) / 255.0
+    return collate_uint8(videos).astype(np.float32) / 255.0
 
 
 def iterate_batches(sequences, batch_size):

@@ -47,7 +47,8 @@ def _stale():
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in sources())
+    return any(src.stat().st_mtime > built
+               for src in [*sources(), *CSRC_DIR.glob("*.cuh")])
 
 
 def build(force=False, verbose=False):
@@ -97,5 +98,13 @@ def load_library():
         lib.srvp_prior_rollout.argtypes = [p, p, i, i, p, p, p, i, i, i, i, i,
                                            i, i, p]
         lib.srvp_prior_rollout.restype = i
+        lib.srvp_train_rollout_fwd.argtypes = [p, p, i, i] + [p] * 10 \
+            + [i] * 8 + [p]
+        lib.srvp_train_rollout_fwd.restype = i
+        lib.srvp_train_rollout_bwd.argtypes = [p, p, i, i] + [p] * 14 \
+            + [i] * 8 + [p]
+        lib.srvp_train_rollout_bwd.restype = i
+        lib.srvp_train_rollout_wgrad.argtypes = [p, i, i] + [p] * 8 + [i, p]
+        lib.srvp_train_rollout_wgrad.restype = i
         _lib = lib
     return _lib

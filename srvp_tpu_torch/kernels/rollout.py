@@ -65,19 +65,25 @@ def prior_rollout_reference(pz_layers, dyn_layers, y0, eps, ny, nz,
     return torch.stack(ys) if ys else y0.new_zeros((0,) + y0.shape)
 
 
-def _pack(layers):
-    """Flat fp32 buffer of every layer's W^T (in, out) and bias, each
-    starting at a multiple of 4 floats (16-byte loads), plus the int32
-    {din, dout, w_off, b_off} rows the kernel reads."""
+def _pack(mats):
+    """Flat fp32 buffer of (matrix (din, dout), bias (dout,) or None) pairs,
+    each piece starting at a multiple of 4 floats (16-byte loads), plus the
+    int32 {din, dout, w_off, b_off} rows the kernels read (b_off -1: no
+    bias)."""
     chunks, meta, off = [], [], 0
-    for w, b in layers:
-        dout, din = w.shape
-        for t in (w.t().reshape(-1), b.reshape(-1)):
-            meta.append(off)
+    for m, b in mats:
+        din, dout = m.shape
+        row = [din, dout]
+        for t in (m, b):
+            if t is None:
+                row.append(-1)
+                continue
+            t = t.reshape(-1)
+            row.append(off)
             pad = -t.numel() % 4
             chunks += [t, t.new_zeros(pad)]
             off += t.numel() + pad
-        meta[-2:] = [din, dout] + meta[-2:]
+        meta += row
     return torch.cat(chunks), meta
 
 
@@ -124,7 +130,7 @@ def prior_rollout(pz_layers, dyn_layers, y0, eps, ny, nz, oversampling=1):
     from srvp_tpu_torch.kernels.build import load_library
     lib = load_library()
     with torch.no_grad():
-        params, meta = _pack(layers)
+        params, meta = _pack([(w.t(), b) for w, b in layers])
     meta_t = torch.tensor(meta, dtype=torch.int32, device=device)
     hmax = max(w.shape[0] for w, _ in layers)
     # the C function launches on the calling thread's current device

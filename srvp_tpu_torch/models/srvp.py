@@ -1,13 +1,19 @@
-"""SRVP model in PyTorch (counterpart of srvp_tpu/models/srvp.py), eval mode.
+"""SRVP model in PyTorch (counterpart of srvp_tpu/models/srvp.py).
 
 Public functions keep the JAX layouts: videos (T, B, H, W, C), latent
 sequences (T, B, n). Time is folded into the batch batch-major (row
 b*nt + t) for the frame-wise convs, as in the JAX package.
 
-Every stochastic function takes its standard-normal noise as an argument
-(eps_y, eps_pri/eps_pos per Euler substep, eps for the prior rollout) so
-tests can feed it the JAX draws; when the noise is None it is drawn from the
-given torch.Generator.
+Training mode follows the module's `training` flag (`model.train()`): batch
+norm uses batch statistics, the skip connections come from a random frame
+per video, `infer_w` reads a random subset of frames, and `forward` rolls
+out with posterior z on every substep.
+
+Every stochastic function takes its randomness as an argument (eps_y,
+eps_pri/eps_pos per Euler substep, eps for the prior rollout, the skip frame
+index, the infer_w frame indices) so tests can feed it the JAX draws; when
+one is None it is drawn from the given torch.Generator, in a fixed order
+that does not depend on the rollout route.
 
 State-space recap: content w (permutation-invariant over frames), initial
 state y_1 ~ q(y | x_{1:nt_inf}), dynamics y' = y + dt * f(y, z), with
@@ -22,6 +28,7 @@ import torch.nn as nn
 
 from srvp_tpu_torch.config import SRVPConfig
 from srvp_tpu_torch.kernels.rollout import prior_rollout
+from srvp_tpu_torch.kernels.rollout_train import train_rollout
 from srvp_tpu_torch.models.conv import Decoder, Encoder
 from srvp_tpu_torch.models.lstm import lstm_apply, make_lstm
 from srvp_tpu_torch.models.mlp import MLP
@@ -34,6 +41,17 @@ class GenerateOutput(NamedTuple):
     q_z_params: Optional[torch.Tensor]    # (n_obs, B, 2nz) or None
     p_z_params: Optional[torch.Tensor]    # (nt-1, B, 2nz) or None
     res: torch.Tensor                     # (o*(nt-1), B, ny)
+
+
+class ForwardOutput(NamedTuple):
+    x_: torch.Tensor                      # (L, B, H, W, C) in [0, 1]
+    y: torch.Tensor
+    z: Optional[torch.Tensor]
+    w: torch.Tensor                       # (B, nh_inf)
+    q_y_0_params: torch.Tensor            # (B, 2ny)
+    q_z_params: Optional[torch.Tensor]
+    p_z_params: Optional[torch.Tensor]
+    res: torch.Tensor
 
 
 def rollout_masks(nt, oversampling, nt_hx):
@@ -81,17 +99,25 @@ class SRVP(nn.Module):
 
     # -- encode / decode ----------------------------------------------------
 
-    def encode(self, x):
+    def encode(self, x, skip_t=None, generator=None):
         """x: (T, B, H, W, C) -> (hx (T, B, nhx), skips or None).
 
-        Skips come from each video's last frame, (B, c, h, w) NCHW."""
+        Skips are per video, (B, c, h, w) NCHW: from frame skip_t[b] in
+        training mode (drawn uniformly when None) and from the last frame
+        otherwise."""
         nt, bsz = x.shape[0], x.shape[1]
         x_flat = x.transpose(0, 1).reshape((bsz * nt,) + x.shape[2:])
         hx_flat, skips = self.encoder(x_flat.permute(0, 3, 1, 2).contiguous())
         hx = hx_flat.reshape(bsz, nt, self.cfg.nhx).transpose(0, 1)
         if not self.cfg.skipco:
             return hx, None
-        return hx, [s[nt - 1::nt] for s in skips]
+        if not self.training:
+            return hx, [s[nt - 1::nt] for s in skips]
+        if skip_t is None:
+            skip_t = torch.randint(0, nt, (bsz,), generator=generator,
+                                   device=x.device)
+        rows = torch.arange(bsz, device=x.device) * nt + skip_t.to(x.device)
+        return hx, [s[rows] for s in skips]
 
     def decode(self, w, y, skips):
         """Decodes (w, y_t) pairs. w: (B, nh_inf), y: (L, B, ny), skips:
@@ -108,10 +134,22 @@ class SRVP(nn.Module):
 
     # -- inference networks -------------------------------------------------
 
-    def infer_w(self, hx):
-        """Content variable from the last nt_inf frames. hx: (T, B, nhx)."""
-        h = self.w_proj(hx[-self.cfg.nt_inf:])
-        return self.w_inf(h.sum(0))
+    def infer_w(self, hx, frame_idx=None, generator=None):
+        """Content variable. hx: (T, B, nhx). Training mode reads nt_inf
+        frames per video drawn without replacement, frame_idx (nt_inf, B)
+        when given; otherwise the last nt_inf frames."""
+        nt_inf = self.cfg.nt_inf
+        if self.training:
+            if frame_idx is None:
+                keys = torch.rand((hx.shape[1], hx.shape[0]),
+                                  generator=generator, device=hx.device)
+                frame_idx = keys.argsort(dim=1)[:, :nt_inf].T
+            idx = frame_idx.to(hx.device)[..., None].expand(-1, -1,
+                                                            hx.shape[2])
+            h = torch.gather(hx, 0, idx)
+        else:
+            h = hx[-nt_inf:]
+        return self.w_inf(self.w_proj(h).sum(0))
 
     def infer_y(self, hx, eps_y=None, generator=None):
         """q(y_1 | x_{1:nt_inf}). hx: (nt_inf, B, nhx) -> (y_0, q params)."""
@@ -121,17 +159,46 @@ class SRVP(nn.Module):
         eps_y = _noise(eps_y, (bsz, self.cfg.ny), q_y_0_params, generator)
         return rsample(q_y_0_params, eps_y), q_y_0_params
 
+    # -- full pass ----------------------------------------------------------
+
+    def forward(self, x, nt, oversampling=1, skip_t=None, frame_idx=None,
+                eps_y=None, eps_pri=None, eps_pos=None, generator=None,
+                use_kernel=False):
+        """Full model pass (srvp_tpu/models/srvp.py `forward`).
+
+        x: (T, B, H, W, C) in [0, 1]. Returns ForwardOutput with nt frames.
+        Randomness not given is drawn in the order skip_t, frame_idx, eps_y,
+        rollout eps.
+        `use_kernel` routes an all-posterior rollout through the training
+        rollout kernels.
+        """
+        hx, skips = self.encode(x, skip_t, generator)
+        w = self.infer_w(hx, frame_idx, generator)
+        y_0, q_y_0_params = self.infer_y(hx[:self.cfg.nt_inf], eps_y,
+                                         generator)
+        gen = self.generate(y_0, hx, nt, oversampling, eps_pri=eps_pri,
+                            eps_pos=eps_pos, generator=generator,
+                            use_kernel=use_kernel)
+        x_ = self.decode(w, gen.y, skips)
+        return ForwardOutput(x_, gen.y, gen.z, w, q_y_0_params,
+                             gen.q_z_params, gen.p_z_params, gen.res)
+
     # -- rollouts -----------------------------------------------------------
 
     def generate(self, y_0, hx, nt, oversampling=1, eps_pri=None,
                  eps_pos=None, remove_intermediate=True, hx_z=None,
-                 generator=None):
-        """Eager Euler rollout of the latent state.
+                 generator=None, use_kernel=False):
+        """Euler rollout of the latent state.
 
         y_0: (B, ny); hx: (nt_hx, B, nhx) frame encodings or None (pure
         prior); hx_z optionally gives the z-LSTM outputs (nt_hx, B, nh_inf)
         instead of hx. eps_pri / eps_pos: (o*(nt-1), B, nz) noise per substep;
         only the first substep of each frame reads them.
+
+        The rollout is an eager per-substep loop, unless `use_kernel` is set
+        and every frame has an observation (training): then it goes through
+        the training-rollout kernels (kernels/rollout_train.py) on the same
+        noise. In training mode every frame must have an observation.
         """
         cfg = self.cfg
         dt = 1.0 / oversampling
@@ -151,6 +218,19 @@ class SRVP(nn.Module):
             eps_pri = _noise(eps_pri, shape, y_0, generator)
         if np.any(new_step & use_post):
             eps_pos = _noise(eps_pos, shape, y_0, generator)
+        if self.training and not np.all(use_post):
+            raise ValueError("a training rollout needs an observation for "
+                             "every generated frame")
+        if use_kernel and np.all(use_post):
+            ys, res, q_pars, p_pars, zs = train_rollout(
+                (self.q_z.weight, self.q_z.bias), self.p_z.linears(),
+                self.dynamics.linears(), y_0, hx_z[t_data], eps_pos,
+                oversampling)
+            keep = (np.flatnonzero(keep_integer) if remove_intermediate
+                    else slice(None))
+            new = np.flatnonzero(new_step)
+            return GenerateOutput(torch.cat([y_0[None], ys[keep]]), zs[new],
+                                  q_pars[new], p_pars[new], res)
 
         y, z = y_0, None
         ys, res, zs, p_pars, q_pars = [], [], [], [], []

@@ -1,0 +1,36 @@
+"""Experiment-directory writes of the trainer: model state_dicts and
+config.json. A state_dict uses the reference checkpoint key names, so the
+port's test_main loads it with `--model_name <name>.pt`. Files are written
+to a temporary name and renamed, so a directory only ever holds complete
+files."""
+
+import json
+import os
+
+import torch
+
+
+def _replace(path, write):
+    tmp = f"{path}.tmp"
+    write(tmp)
+    os.replace(tmp, path)
+
+
+def save_model(save_path, name, model):
+    """Writes `model`'s state_dict (tensors on the CPU) to
+    save_path/name.pt; returns the path."""
+    path = os.path.join(save_path, f"{name}.pt")
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    _replace(path, lambda p: torch.save(sd, p))
+    return path
+
+
+def save_config(save_path, config):
+    """Writes the experiment's flags to save_path/config.json."""
+    path = os.path.join(save_path, "config.json")
+
+    def write(p):
+        with open(p, "w") as f:
+            json.dump(config, f, indent=2, sort_keys=True)
+    _replace(path, write)
+    return path

@@ -13,6 +13,9 @@ port's state_dict (the reference checkpoint's key names):
   * linear kernels (in, out) -> weight (out, in)
   * LSTM w_ih / w_hh (in, 4h) -> (4h, in)
   * batch norm scale/bias -> weight/bias; state mean/var -> running stats
+
+`bn_state_from_port` maps a port state_dict's running statistics back to the
+JAX bn_state layout.
 """
 
 import re
@@ -100,6 +103,35 @@ def state_dict_from_jax(params, bn_state, cfg):
     _mlp(sd, "p_z", params["p_z"])
     _mlp(sd, "dynamics", params["dynamics"])
     return sd
+
+
+def bn_state_from_port(state_dict, cfg):
+    """The batch-norm running statistics of a port state_dict as the JAX
+    package's bn_state pytree (numpy arrays): the inverse of the statistics
+    part of state_dict_from_jax, for carrying a trained model's state back
+    and for holding it against the JAX train step's state."""
+    enc_stages, enc_last = encoder_spec(cfg.archi, cfg.nc, cfg.nhx, cfg.nf)
+    dec_first, dec_stages = decoder_spec(cfg.archi, cfg.nc,
+                                         cfg.nh_inf + cfg.ny, cfg.nf,
+                                         cfg.skipco)
+
+    def block(prefix, spec):
+        if not spec.bn:
+            return [{}]
+        stats = [state_dict[f"{prefix}.1.running_{k}"].detach().cpu().numpy()
+                 for k in ("mean", "var")]
+        return [{"bn": dict(zip(("mean", "var"), stats))}]
+
+    return {
+        "encoder": {
+            "stages": [block(f"encoder.conv.{i}", sp)
+                       for i, sp in enumerate(enc_stages)],
+            "last": block("encoder.last_conv", enc_last)},
+        "decoder": {
+            "first": block("decoder.first_upconv", dec_first),
+            "stages": [block(f"decoder.conv.{i}", sp)
+                       for i, sp in enumerate(dec_stages)]},
+    }
 
 
 def _parse_keypath(key):

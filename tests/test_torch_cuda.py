@@ -1,4 +1,7 @@
-"""The prior-rollout CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card: the prior
+rollout, and the training rollout's forward and backward (inputs drawn away
+from ReLU kinks by kernels.parity.kink_free_inputs, a float64 run of the
+plain version as the arbiter of elements fp32 cannot resolve).
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
 Run them on the card with:
@@ -10,7 +13,9 @@ import pytest
 import torch
 
 from srvp_tpu_torch.config import strict_fp32
+from srvp_tpu_torch.kernels import parity
 from srvp_tpu_torch.kernels import rollout as krollout
+from srvp_tpu_torch.kernels import rollout_train as krt
 from srvp_tpu_torch.models.mlp import MLP
 
 pytestmark = pytest.mark.cuda
@@ -59,3 +64,65 @@ def test_kernel_rejects_bad_inputs(cuda):
         krollout.prior_rollout(pz, dyn, y0.t().contiguous().t(), eps, 4, 3)
     with pytest.raises(ValueError):
         krollout.prior_rollout(pz, dyn, y0, eps, 4, 3, 0)
+
+
+def _train_layers(cuda, nh_inf, nh, ny, nz):
+    q = torch.nn.Linear(nh_inf, 2 * nz).to(cuda)
+    return ((q.weight, q.bias), MLP(ny, nh, 2 * nz, 4).to(cuda).linears(),
+            MLP(ny + nz, nh, ny, 4).to(cuda).linears())
+
+
+@pytest.mark.parametrize("bsz,n_steps,o,ny,nz,nh_inf,nh", [
+    (128, 14, 1, 20, 20, 256, 512),   # the training step
+    (37, 10, 2, 20, 12, 24, 64),      # reused z, ny != nz
+    (130, 6, 3, 7, 5, 30, 30),        # ragged tile, widths not multiples of 4
+])
+def test_train_kernels_match_plain(cuda, bsz, n_steps, o, ny, nz, nh_inf,
+                                   nh):
+    torch.manual_seed(0)
+    q, pz, dyn = _train_layers(cuda, nh_inf, nh, ny, nz)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    y0, hxz, eps, _ = parity.kink_free_inputs(q, pz, dyn, bsz, n_steps, o,
+                                              gen)
+    flat = [t.detach() for w, b in [q, *pz, *dyn] for t in (w, b)]
+    runs = []
+    for fn, dtype in ((krt.train_rollout, torch.float32),
+                      (krt.train_rollout_reference, torch.float32),
+                      (krt.train_rollout_reference, torch.float64)):
+        leaves = [t.to(dtype, copy=True).requires_grad_()
+                  for t in [y0, hxz, *flat]]
+        pairs = [(leaves[i], leaves[i + 1]) for i in range(2, len(leaves), 2)]
+        before = (krt.fwd_launches, krt.bwd_launches)
+        outs = fn(pairs[0], pairs[1:5], pairs[5:], leaves[0], leaves[1],
+                  eps.to(dtype), o)
+        grads = torch.autograd.grad(parity.rollout_loss(outs), leaves)
+        runs.append((outs, grads))
+        if fn is krt.train_rollout:
+            assert (krt.fwd_launches, krt.bwd_launches) == (
+                before[0] + 1, before[1] + 2)
+    torch.cuda.synchronize()
+    # each element within the tolerance of the fp32 plain result, or no
+    # farther from the float64 one than that is (parity.agreement)
+    for part, rtol, atol in ((0, 2e-5, 1e-6), (1, 5e-4, 5e-6)):
+        for i, (a, b, c) in enumerate(zip(*(r[part] for r in runs))):
+            assert torch.isfinite(a).all()
+            worst = parity.agreement(a, b, c, rtol, atol)[1]
+            assert worst <= 1.0, (part, i, worst)
+
+
+def test_train_kernels_reject_bad_inputs(cuda):
+    q, pz, dyn = _train_layers(cuda, 6, 8, 4, 3)
+    y0 = torch.zeros(3, 4, device=cuda)
+    hxz = torch.zeros(2, 3, 6, device=cuda)
+    eps = torch.zeros(2, 3, 3, device=cuda)
+    bad = [
+        (y0.double(), hxz, eps, 1),
+        (y0, hxz[:, :2], eps, 1),
+        (y0, hxz, eps[..., :2], 1),
+        (y0, hxz.cpu(), eps, 1),
+        (y0, hxz, eps, 0),
+        (y0[:, :3], hxz, eps, 1),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            krt.train_rollout(q, pz, dyn, *args)

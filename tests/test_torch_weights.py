@@ -5,13 +5,17 @@ import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 import torch
 
+from srvp_tpu.objectives import elbo_loss as jelbo
 from srvp_tpu.utils import checkpoint as ckpt
 from srvp_tpu.utils.torch_export import export_state_dict
 from srvp_tpu_torch.models.srvp import SRVP
+from srvp_tpu_torch.objectives import elbo_loss
 from srvp_tpu_torch.utils import weights
-from tests.torch_port_util import configs, jax_model
+from tests.torch_port_util import (_jit_init, configs, jax_draws, jax_model,
+                                   port_model, t, to_np)
 
 
 @pytest.mark.parametrize("skipco", [False, True])
@@ -68,3 +72,37 @@ def test_vgg_is_not_ported():
     _, cfg = configs(archi="vgg")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SRVP(cfg)
+
+
+def test_bn_state_round_trip():
+    jcfg, cfg = configs(skipco=True)
+    params, state = jax_model(jcfg, seed=5)
+    back = weights.bn_state_from_port(
+        weights.state_dict_from_jax(params, state, cfg), cfg)
+    flat = jax.tree_util.tree_leaves_with_path(state)
+    flat_back = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat) == len(flat_back)
+    for path, leaf in flat:
+        np.testing.assert_array_equal(flat_back[path], leaf)
+
+
+def test_jax_initialised_model_gives_the_same_elbo():
+    """The JAX training init carried into the port: the same ELBO and terms
+    on the same batch and draws, in training mode."""
+    jcfg, cfg = configs()
+    params, state = to_np(_jit_init(jax.random.PRNGKey(4), jcfg, 1.41))
+    x = np.random.RandomState(1).rand(4, 3, 64, 64, 1).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    kw = dict(oversampling=1, obs_scale=1.0, beta_y=1.0, beta_z=1.0,
+              l2_res=1.0)
+    loss_j, aux_j = jax.jit(lambda p: jelbo(jcfg, p, state, jnp.asarray(x),
+                                            key, **kw))(params)
+    model = port_model(params, state, cfg).train()
+    with torch.no_grad():
+        loss, aux = elbo_loss(model, t(x), **kw,
+                              **jax_draws(key, jcfg, 4, 3, 1))
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-4)
+    for name in aux._fields:
+        np.testing.assert_allclose(getattr(aux, name).item(),
+                                   float(getattr(aux_j, name)), rtol=1e-4,
+                                   err_msg=name)

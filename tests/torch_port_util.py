@@ -95,3 +95,16 @@ def chunk_noise(key, cfg, rows, nt_cond, t_pred, o_inf, o_gen):
     eps_inf = step_noise(k_inf, o_inf * (nt_cond - 1), rows, cfg.nz)[1]
     eps_gen = step_noise(k_gen, o_gen * t_pred, rows, cfg.nz)[0]
     return eps_y, eps_inf, eps_gen
+
+
+def jax_draws(key, jcfg, nt, bsz, oversampling):
+    """The randomness of srvp.forward(train=True, rng=key) as torch
+    tensors: skip frame (B,), infer_w frames (nt_inf, B), eps_y, eps_pos."""
+    k_skip, k_w, k_y, k_gen = jax.random.split(key, 4)
+    skip_t = jax.random.randint(k_skip, (bsz,), 0, nt)
+    perms = jax.vmap(lambda k: jax.random.permutation(k, nt)[:jcfg.nt_inf])(
+        jax.random.split(k_w, bsz))
+    eps_y = jax.random.normal(k_y, (bsz, jcfg.ny))
+    eps_pos = step_noise(k_gen, oversampling * (nt - 1), bsz, jcfg.nz)[1]
+    return dict(skip_t=t(skip_t).long(), frame_idx=t(perms.T).long(),
+                eps_y=t(eps_y), eps_pos=eps_pos)
