@@ -1,19 +1,23 @@
 #!/usr/bin/env python
 """Where the time of the port's training step goes, on one GPU.
 
-    python scripts/profile_torch_train.py [--steps 5] [--seed 0]
+    python scripts/profile_torch_train.py [--config smmnist-dcgan|kth-vgg]
+        [--steps 5] [--seed 0]
 
-Runs `srvp_tpu_torch.train_lib.train_step` at the full width of the
-Stochastic Moving MNIST dcgan model (chip_smoke.XP_CONFIG, seeded training
-init) on batches of 128 synthetic Moving MNIST videos of 15 frames from the
-trainer's own loader (digits composited on the device), with the training
-rollout through its CUDA kernels: three warm-up steps, then `--steps` steps
-timed by the host clock (ending in a synchronise) and traced by
-torch.profiler. Prints one JSON line: the card's name and power limit, ms
-per step and frames/s (15 x 128 frames a step), device-busy ms per step (the
-sum of kernel times; one stream, so kernels do not overlap), the device's
-idle share, and the kernels grouped by name with their share of device
-time. Needs CUDA.
+Runs `srvp_tpu_torch.train_lib.train_step` at the full width of a published
+configuration with its seeded training init: `smmnist-dcgan`
+(chip_smoke.XP_CONFIG) on batches of 128 synthetic Moving MNIST videos of
+15 frames (digits composited on the device), or `kth-vgg`
+(chip_smoke.KTH_CONFIG) on batches of 100 windows of 20 frames from a
+synthetic packed KTH tree, o = 2; each from the trainer's own loader, with
+the training rollout and the vgg pools and upsamples through their CUDA
+kernels: three warm-up steps, then `--steps` steps timed by the host clock
+(ending in a synchronise) and traced by torch.profiler. Prints one JSON
+line: the card's name and power limit, ms per step and frames/s, the peak
+device memory, device-busy ms per step (the sum of kernel times; one
+stream, so kernels do not overlap), the device's idle share, the share of
+the port's own kernels (rollout, spatial), and the kernels grouped by name
+with their share of device time. Needs CUDA.
 """
 
 import argparse
@@ -33,11 +37,38 @@ from srvp_tpu_torch.config import model_config, strict_fp32  # noqa: E402
 from srvp_tpu_torch.data.device_compose import to_device  # noqa: E402
 from srvp_tpu_torch.data.loader import infinite_batches  # noqa: E402
 
-import chip_smoke  # noqa: E402  (flagship config and trainer flags)
+import chip_smoke  # noqa: E402  (configurations, trainer flags, data)
+
+# the port's own kernels, by a part of their names
+OWN_KERNELS = {"rollout": ("rollout",),
+               "spatial": ("maxpool_fwd_kernel", "maxpool_bwd_kernel",
+                           "upsample_fwd_kernel", "upsample_bwd_kernel")}
+
+
+def kernel_table(prof, n, unit):
+    """(device-busy ms per unit, the port's kernels' shares, the top 15
+    kernels by device time) of a torch.profiler run over n units."""
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and ev.device_time_total > 0:
+            k = kernels.setdefault(ev.name, [0.0, 0])
+            k[0] += ev.device_time_total / 1e3
+            k[1] += 1
+    busy_ms = sum(v[0] for v in kernels.values()) / n
+    own = {group: sum(v[0] for name, v in kernels.items()
+                      if any(part in name for part in parts)) / n / busy_ms
+           for group, parts in OWN_KERNELS.items()}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    return busy_ms, own, [{"name": name[:90], f"ms_per_{unit}": v[0] / n,
+                           f"calls_per_{unit}": v[1] / n,
+                           "share": v[0] / n / busy_ms} for name, v in top]
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", choices=["smmnist-dcgan", "kth-vgg"],
+                   default="smmnist-dcgan")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
@@ -45,6 +76,16 @@ def main():
         sys.exit("profile_torch_train: needs CUDA")
     strict_fp32()
     with tempfile.TemporaryDirectory() as tmp:
+        run(args, tmp)
+
+
+def run(args, tmp):
+    if args.config == "kth-vgg":
+        chip_smoke.write_kth_packed_tree(tmp, 64, args.seed)
+        opt = chip_smoke.train_args(tmp, tmp, args.steps,
+                                    cfg=chip_smoke.KTH_CONFIG,
+                                    batch_size=chip_smoke.KTH_TRAIN_BATCH)
+    else:
         opt = chip_smoke.train_args(tmp, tmp, args.steps)
     opt.seed = args.seed
     hp = train_main.train_hparams(opt)
@@ -61,6 +102,7 @@ def main():
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -69,28 +111,18 @@ def main():
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
 
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA \
-                and ev.device_time_total > 0:
-            k = kernels.setdefault(ev.name, [0.0, 0])
-            k[0] += ev.device_time_total / 1e3
-            k[1] += 1
-    busy_ms = sum(v[0] for v in kernels.values()) / args.steps
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    busy_ms, own, top = kernel_table(prof, args.steps, "step")
     frames = opt.seq_len * opt.batch_size
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
+        "config": args.config, "device": torch.cuda.get_device_name(0),
         "nvidia_smi": chip_smoke.nvidia_smi_line(),
         "steps": args.steps, "batch": opt.batch_size, "seq_len": opt.seq_len,
-        "loss": float(metrics["loss"]),
+        "oversampling": opt.n_euler_steps, "loss": float(metrics["loss"]),
         "wall_ms_per_step": wall_ms, "frames_per_s": frames / wall_ms * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernels": [dict(name=name[:90], ms_per_step=v[0] / args.steps,
-                         calls_per_step=v[1] / args.steps,
-                         share=v[0] / args.steps / busy_ms)
-                    for name, v in top]}))
+        "own_kernel_shares": own, "kernels": top}))
 
 
 if __name__ == "__main__":

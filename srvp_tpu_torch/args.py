@@ -57,7 +57,7 @@ def create_args():
                    help="Standard deviation of the observation model.")
     m.add_argument("--archi", type=str, metavar="ARCH", default="dcgan",
                    choices=ARCH_TYPES, help="Encoder and decoder "
-                   "architecture (vgg is not ported yet).")
+                   "architecture.")
     m.add_argument("--skipco", action="store_true",
                    help="Skip connections from encoders to decoders.")
     m.add_argument("--nf", type=int, metavar="FILTERS", default=64,
@@ -94,7 +94,7 @@ def create_args():
     d = p.add_argument_group("Dataset")
     d.add_argument("--dataset", type=str, metavar="DATASET", required=True,
                    choices=DATASETS,
-                   help="Dataset name (only smmnist is ported).")
+                   help="Dataset name (smmnist and kth are ported).")
     d.add_argument("--data_dir", type=str, metavar="DIR", required=True,
                    help="Data directory.")
     d.add_argument("--seq_len", type=int, metavar="LEN", required=True,
@@ -150,8 +150,7 @@ def check_ported(opt):
         "--steps_per_dispatch > 1": opt.steps_per_dispatch != 1,
         "--no_device_compose": opt.no_device_compose,
         "--n_devices > 1": opt.n_devices not in (None, 1),
-        f"--dataset {opt.dataset}": opt.dataset != "smmnist",
-        "--archi vgg": opt.archi == "vgg",
+        f"--dataset {opt.dataset}": opt.dataset not in ("smmnist", "kth"),
     }
     for flag, asked in todo.items():
         if asked:

@@ -21,7 +21,7 @@ class SRVPConfig:
     nlayers_inf: int = 3  # inference MLP layers
     nh_res: int = 512     # dynamics MLP hidden size
     nlayers_res: int = 4  # dynamics MLP layers
-    archi: str = "dcgan"  # 'dcgan' ('vgg' is not ported yet)
+    archi: str = "dcgan"  # 'dcgan' | 'vgg'
 
 
 def model_config(xp_config):

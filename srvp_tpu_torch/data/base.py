@@ -4,10 +4,27 @@ srvp_tpu/data/base.py).
 Datasets expose `get_item(index, rng)` with an explicit numpy RandomState, so
 item randomness is an argument and a seeded loader is reproducible. The
 train/val split is the JAX package's: a seed-42 shuffle of the item indices,
-95% train, each fold keeping the original item order.
+95% train, each fold keeping the original item order. `load_dataset` picks
+the training dataset by name.
 """
 
 import numpy as np
+
+
+def load_dataset(opt):
+    """The training dataset named by opt.dataset (trainer flags); its folds
+    come from get_fold."""
+    if opt.dataset == "smmnist":
+        from srvp_tpu_torch.data.mmnist import MovingMNIST
+        return MovingMNIST.make_dataset(
+            opt.data_dir, opt.nx, opt.seq_len, opt.max_speed,
+            opt.deterministic, opt.ndigits,
+            allow_synthetic=opt.allow_synthetic)
+    if opt.dataset == "kth":
+        from srvp_tpu_torch.data.kth import KTH
+        return KTH.make_dataset(opt.data_dir, opt.nx, opt.seq_len, True)
+    raise NotImplementedError(f"dataset {opt.dataset!r} is not ported yet "
+                              "(ROADMAP.md, Queue 1)")
 
 
 def collate_uint8(videos):

@@ -49,6 +49,14 @@ class DataLoader:
                 for pos in range(lo, hi)])
 
 
+def batches_in_order(videos, batch_size):
+    """A test fold's uint8 videos [(T, H, W[, C])] as float32 (T, B, H, W,
+    C) batches in [0, 1], in order; the last batch holds the remainder."""
+    for lo in range(0, len(videos), batch_size):
+        yield collate_uint8(videos[lo:lo + batch_size]).astype(
+            np.float32) / 255.0
+
+
 def infinite_batches(loader):
     """Cycles a DataLoader forever, one epoch after another."""
     while True:

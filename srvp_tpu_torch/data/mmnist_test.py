@@ -11,7 +11,7 @@ import os
 
 import numpy as np
 
-from srvp_tpu_torch.data.base import collate_uint8
+from srvp_tpu_torch.data.loader import batches_in_order
 
 
 def archive_path(data_dir, nx, num_digits, deterministic):
@@ -27,16 +27,8 @@ def load_test_sequences(data_dir, nx, num_digits, deterministic):
         return arc["sequences"]
 
 
-def collate(videos):
-    """uint8 videos [(T, H, W) or (T, H, W, C)] -> float32 (T, B, H, W, C)
-    in [0, 1]."""
-    return collate_uint8(videos).astype(np.float32) / 255.0
-
-
 def iterate_batches(sequences, batch_size):
     """Yields collated (T, B, H, W, 1) float32 batches in order; the last
     batch holds the remainder."""
-    n = sequences.shape[1]
-    for lo in range(0, n, batch_size):
-        yield collate([sequences[:, i] for i in range(lo, min(lo + batch_size,
-                                                              n))])
+    return batches_in_order([sequences[:, i]
+                             for i in range(sequences.shape[1])], batch_size)

@@ -106,5 +106,13 @@ def load_library():
         lib.srvp_train_rollout_bwd.restype = i
         lib.srvp_train_rollout_wgrad.argtypes = [p, i, i] + [p] * 8 + [i, p]
         lib.srvp_train_rollout_wgrad.restype = i
+        ll = ctypes.c_longlong
+        for name, n_ptrs in (("srvp_maxpool2x2_fwd", 2),
+                             ("srvp_maxpool2x2_bwd", 4),
+                             ("srvp_upsample2x_fwd", 2),
+                             ("srvp_upsample2x_bwd", 2)):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * n_ptrs + [ll, ll, p]
+            fn.restype = i
         _lib = lib
     return _lib

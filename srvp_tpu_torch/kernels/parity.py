@@ -43,9 +43,9 @@ def agreement(out, ref, ref64, rtol, atol):
 
 @torch.no_grad()
 def rows_near_kink(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
-                   oversampling):
+                   oversampling, margin=KINK_MARGIN):
     """(B,) bool: the rows whose plain training-rollout forward puts a hidden
-    pre-activation within KINK_MARGIN of the ReLU kink, relative to that
+    pre-activation within `margin` of the ReLU kink, relative to that
     layer's largest magnitude at that substep."""
     near = torch.zeros(y0.shape[0], dtype=torch.bool, device=y0.device)
     y, z = y0, None
@@ -55,7 +55,7 @@ def rows_near_kink(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
         for layers, h in ((pz_layers, y), (dyn_layers, torch.cat([y, z], -1))):
             for il, (w, b) in enumerate(layers):
                 if il > 0:
-                    near |= (h.abs() < KINK_MARGIN * h.abs().max()).any(1)
+                    near |= (h.abs() < margin * h.abs().max()).any(1)
                     h = torch.relu(h)
                 h = F.linear(h, w, b)
         y = y + h / oversampling
@@ -80,10 +80,10 @@ def redraw_rows(fill, near, bsz, device):
 
 
 def kink_free_inputs(q_layer, pz_layers, dyn_layers, bsz, n_steps,
-                     oversampling, gen):
+                     oversampling, gen, margin=KINK_MARGIN):
     """y0 (0.1 N(0, 1)), hxz and eps (N(0, 1)) for the training rollout, on
-    the generator's device, with no row near a kink (rows_near_kink).
-    Returns them and the number of rows drawn again."""
+    the generator's device, with no row near a kink (rows_near_kink at
+    `margin`). Returns them and the number of rows drawn again."""
     nh_inf, ny = q_layer[0].shape[1], pz_layers[0][0].shape[1]
     nz = q_layer[0].shape[0] // 2
     dev = gen.device
@@ -99,5 +99,5 @@ def kink_free_inputs(q_layer, pz_layers, dyn_layers, bsz, n_steps,
 
     redrawn = redraw_rows(
         fill, lambda: rows_near_kink(q_layer, pz_layers, dyn_layers, y0, hxz,
-                                     eps, oversampling), bsz, dev)
+                                     eps, oversampling, margin), bsz, dev)
     return y0, hxz, eps, redrawn

@@ -1,10 +1,26 @@
-"""DCGAN64 frame encoder and decoder (counterpart of srvp_tpu/models/conv.py).
+"""DCGAN64 and VGG64 frame encoders and decoders (counterpart of
+srvp_tpu/models/conv.py).
 
-The modules run NCHW. The encoder is 4x (4x4 s2 conv + LeakyReLU(0.2), BN
-on all but the first), then a 4x4 valid conv -> BN -> tanh to a flat vector;
-it returns its per-stage outputs, deepest first, as skip connections. The
-decoder mirrors it with transposed convs and ends in a plain convT; with
-skip connections it concatenates skip i to the input of stage i.
+The modules run NCHW. Each network is a list of stages, each stage a list
+of ops: ('block', ConvBlockSpec), ('maxpool', None) or ('upsample', None).
+  * dcgan encoder: 4x (4x4 s2 conv + LeakyReLU(0.2), BN on all but the
+    first), then a 4x4 valid conv -> BN -> tanh to a flat vector;
+  * vgg encoder: 4 stages of 3x3 convs (+BN+LeakyReLU), each after the first
+    led by a 2x2 max pool, then a max pool and the 4x4 valid conv;
+  * the decoders mirror them: dcgan with transposed convs, vgg with a 4x4
+    convT stem and 3x3 convs, each stage but the last ending in a 2x
+    nearest upsample; both end in a plain convT.
+The encoder returns its per-stage outputs, deepest first, as skip
+connections; with skip connections the decoder concatenates skip i to the
+input of stage i.
+
+Module nesting gives the reference checkpoint's keys: a dcgan stage is its
+one block (`encoder.conv.{i}.0.weight`), a vgg stage an nn.Sequential of its
+ops with the pool and upsample at their reference positions
+(`encoder.conv.{i}.{j}.0.weight`, `encoder.last_conv.1.0.weight`,
+`decoder.first_upconv.0.0.weight`, `decoder.conv.3.1.weight`). The pools and
+upsamples are kernels/spatial.py's modules: the CUDA kernels unless
+`kernels.spatial.use_kernels(model, False)` turns them to the plain versions.
 
 The JAX package rewrites the 1x1 decoder stem as a GEMM and splits the skip
 conv for the TPU; here the stem is an ordinary ConvTranspose2d and the skip
@@ -14,58 +30,96 @@ is concatenated, which computes the same function.
 import torch
 import torch.nn as nn
 
+from srvp_tpu_torch.kernels.spatial import MaxPool, Upsample
 from srvp_tpu_torch.models.layers import ConvBlockSpec, conv_block
 
-VGG_NOT_PORTED = ("archi='vgg' is not ported yet: its pool/upsample kernels "
-                  "belong to the vgg/KTH slice (ROADMAP.md, Queue 2)")
+POOL, UP = ("maxpool", None), ("upsample", None)
 
 
 def _b(kind, in_ch, out_ch, kernel, stride, padding, activation="leaky_relu",
        bn=True):
-    return ConvBlockSpec(kind, in_ch, out_ch, kernel, stride, padding,
-                         activation, bn)
+    return ("block", ConvBlockSpec(kind, in_ch, out_ch, kernel, stride,
+                                   padding, activation, bn))
 
 
-def _check_archi(archi):
-    if archi == "vgg":
-        raise NotImplementedError(VGG_NOT_PORTED)
-    if archi != "dcgan":
-        raise ValueError(f"No network named '{archi}'")
+def _c3(in_ch, out_ch):
+    return _b("conv", in_ch, out_ch, 3, 1, 1)
 
 
 def encoder_spec(archi, nc, nh, nf):
-    """Returns (stages, last): one block spec per stage, then the last."""
-    _check_archi(archi)
-    stages = [
-        _b("conv", nc, nf, 4, 2, 1, bn=False),
-        _b("conv", nf, nf * 2, 4, 2, 1),
-        _b("conv", nf * 2, nf * 4, 4, 2, 1),
-        _b("conv", nf * 4, nf * 8, 4, 2, 1),
-    ]
-    last = _b("conv", nf * 8, nh, 4, 1, 0, activation="tanh")
-    return stages, last
+    """Returns (stages, last) op lists."""
+    if archi == "dcgan":
+        stages = [
+            [_b("conv", nc, nf, 4, 2, 1, bn=False)],
+            [_b("conv", nf, nf * 2, 4, 2, 1)],
+            [_b("conv", nf * 2, nf * 4, 4, 2, 1)],
+            [_b("conv", nf * 4, nf * 8, 4, 2, 1)],
+        ]
+        return stages, [_b("conv", nf * 8, nh, 4, 1, 0, activation="tanh")]
+    if archi == "vgg":
+        stages = [
+            [_c3(nc, nf), _c3(nf, nf)],
+            [POOL, _c3(nf, nf * 2), _c3(nf * 2, nf * 2)],
+            [POOL, _c3(nf * 2, nf * 4), _c3(nf * 4, nf * 4),
+             _c3(nf * 4, nf * 4)],
+            [POOL, _c3(nf * 4, nf * 8), _c3(nf * 8, nf * 8),
+             _c3(nf * 8, nf * 8)],
+        ]
+        last = [POOL, _b("conv", nf * 8, nh, 4, 1, 0, activation="tanh")]
+        return stages, last
+    raise ValueError(f"No encoder named '{archi}'")
 
 
 def decoder_spec(archi, nc, ny, nf, skip):
-    """Returns (first, stages). `ny` is the flat input dim (w + y)."""
-    _check_archi(archi)
+    """Returns (first, stages) op lists. `ny` is the flat input dim (w + y)."""
     coef = 2 if skip else 1
-    first = _b("convt", ny, nf * 8, 4, 1, 0)
-    stages = [
-        _b("convt", nf * 8 * coef, nf * 4, 4, 2, 1),
-        _b("convt", nf * 4 * coef, nf * 2, 4, 2, 1),
-        _b("convt", nf * 2 * coef, nf, 4, 2, 1),
-        _b("convt", nf * coef, nc, 4, 2, 1, activation="none", bn=False),
-    ]
-    return first, stages
+    if archi == "dcgan":
+        first = [_b("convt", ny, nf * 8, 4, 1, 0)]
+        stages = [
+            [_b("convt", nf * 8 * coef, nf * 4, 4, 2, 1)],
+            [_b("convt", nf * 4 * coef, nf * 2, 4, 2, 1)],
+            [_b("convt", nf * 2 * coef, nf, 4, 2, 1)],
+            [_b("convt", nf * coef, nc, 4, 2, 1, activation="none", bn=False)],
+        ]
+        return first, stages
+    if archi == "vgg":
+        first = [_b("convt", ny, nf * 8, 4, 1, 0), UP]
+        stages = [
+            [_c3(nf * 8 * coef, nf * 8), _c3(nf * 8, nf * 8),
+             _c3(nf * 8, nf * 4), UP],
+            [_c3(nf * 4 * coef, nf * 4), _c3(nf * 4, nf * 4),
+             _c3(nf * 4, nf * 2), UP],
+            [_c3(nf * 2 * coef, nf * 2), _c3(nf * 2, nf), UP],
+            [_c3(nf * coef, nf),
+             _b("convt", nf, nc, 3, 1, 1, activation="none", bn=False)],
+        ]
+        return first, stages
+    raise ValueError(f"No decoder named '{archi}'")
+
+
+def _op_module(op, spec):
+    if op == "block":
+        return conv_block(spec)
+    if op == "maxpool":
+        return MaxPool()
+    if op == "upsample":
+        return Upsample()
+    raise ValueError(f"Unknown op '{op}'")
+
+
+def stage_module(ops):
+    """One stage: its only block (dcgan), or an nn.Sequential of its ops."""
+    if len(ops) == 1 and ops[0][0] == "block":
+        return conv_block(ops[0][1])
+    return nn.Sequential(*[_op_module(*op) for op in ops])
 
 
 class Encoder(nn.Module):
     def __init__(self, archi, nc, nh, nf):
         super().__init__()
         stages, last = encoder_spec(archi, nc, nh, nf)
-        self.conv = nn.ModuleList([conv_block(s) for s in stages])
-        self.last_conv = conv_block(last)
+        self.conv = nn.ModuleList([stage_module(ops) for ops in stages])
+        self.last_conv = stage_module(last)
         self.nh = nh
 
     def forward(self, x):
@@ -75,15 +129,16 @@ class Encoder(nn.Module):
         for stage in self.conv:
             h = stage(h)
             skips.append(h)
-        return self.last_conv(h).reshape(-1, self.nh), skips[::-1]
+        h = self.last_conv(h)
+        return h.reshape(-1, self.nh), skips[::-1]
 
 
 class Decoder(nn.Module):
     def __init__(self, archi, nc, ny, nf, skip):
         super().__init__()
         first, stages = decoder_spec(archi, nc, ny, nf, skip)
-        self.first_upconv = conv_block(first)
-        self.conv = nn.ModuleList([conv_block(s) for s in stages])
+        self.first_upconv = stage_module(first)
+        self.conv = nn.ModuleList([stage_module(ops) for ops in stages])
 
     def forward(self, z, skips=None):
         """z: (N, n_in) -> frames (N, C, H, W) in [0, 1]. skips: None or a

@@ -4,7 +4,9 @@ Loads config.json and a checkpoint from --xp_dir (a JAX `model.npz`
 snapshot, or a reference `.pt` state_dict), runs best/worst-of-N stochastic
 prediction with PSNR and SSIM on the Moving MNIST test fold, prints mean
 +/- 95% CI and writes `results.npz` and one `<name>.npz` per artifact with
-the keys, dtypes and shapes test.py writes.
+the keys, dtypes and shapes test.py writes. The test fold is that of the
+config's dataset: Moving MNIST's `{s}mmnist_test_{n}digits_{nx}.npz` or
+KTH's `svg_test_set_{nt_gen}.npz`; Human3.6M and BAIR are not ported yet.
 
     python -m srvp_tpu_torch.test_main --xp_dir XP --data_dir DATA
 
@@ -20,6 +22,8 @@ import numpy as np
 import torch
 
 from srvp_tpu_torch.config import model_config, resolve_device
+from srvp_tpu_torch.data.kth import KTH
+from srvp_tpu_torch.data.loader import batches_in_order
 from srvp_tpu_torch.data.mmnist_test import iterate_batches, load_test_sequences
 from srvp_tpu_torch.eval_lib import run_test
 from srvp_tpu_torch.models.srvp import SRVP
@@ -94,18 +98,25 @@ def main(opt):
     device = resolve_device(opt.device)
     with open(os.path.join(opt.xp_dir, "config.json")) as f:
         xp_config = json.load(f)
-    if xp_config["dataset"] != "smmnist":
+    if xp_config["dataset"] not in ("smmnist", "kth"):
         raise NotImplementedError(
-            f"dataset {xp_config['dataset']!r} is not ported yet")
+            f"dataset {xp_config['dataset']!r} is not ported yet "
+            "(ROADMAP.md, Queue 1)")
     nt_cond = opt.nt_cond if opt.nt_cond is not None else xp_config["nt_cond"]
     nt_test = resolve_nt_test(opt, xp_config)
     o_inf = xp_config["n_euler_steps"]
     o_gen = opt.n_euler_steps if opt.n_euler_steps is not None else o_inf
 
     print("Loading data...")
-    sequences = load_test_sequences(opt.data_dir, xp_config["nx"],
-                                    xp_config["ndigits"],
-                                    xp_config["deterministic"])
+    if xp_config["dataset"] == "kth":
+        videos = KTH.make_dataset(opt.data_dir, xp_config["nx"], nt_test,
+                                  train=False).data
+        batches = batches_in_order(videos, opt.batch_size)
+    else:
+        batches = iterate_batches(
+            load_test_sequences(opt.data_dir, xp_config["nx"],
+                                xp_config["ndigits"],
+                                xp_config["deterministic"]), opt.batch_size)
 
     print("Loading model...")
     cfg = model_config(xp_config)
@@ -117,7 +128,7 @@ def main(opt):
     generator = torch.Generator(device=device)
     generator.manual_seed(opt.test_seed)
     results, samples, _, _, batch_seconds = run_test(
-        model, iterate_batches(sequences, opt.batch_size), nt_cond, nt_test,
+        model, batches, nt_cond, nt_test,
         opt.n_samples, opt.samples_chunk, generator, o_inf, o_gen,
         pad_to=opt.batch_size, use_kernel_rollout=opt.fused_rollout != "off")
 

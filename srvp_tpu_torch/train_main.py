@@ -6,8 +6,10 @@ the repository's train.py).
         --nt_cond 5 [--allow_synthetic] [--device cpu]
 
 Trains on Stochastic Moving MNIST generated on the fly (digits and
-trajectories on the host, frames composited on the device), with the
-training rollout through its CUDA kernels unless `--fused_rollout off`.
+trajectories on the host, frames composited on the device) or on KTH
+(windows of a packed video tree, data/kth.py), with the dcgan or vgg
+encoder and decoder; the training rollout goes through its CUDA kernels
+unless `--fused_rollout off`, and the vgg pools and upsamples always do.
 Logs loss, nll, kl_y_0, kl_z, lr and frames/s every `--log_interval` steps
 (printed, and appended to XP/metrics.jsonl), validates best-of-N prediction
 PSNR every `--val_interval` steps (saving XP/model_best.pt on improvement),
@@ -15,7 +17,7 @@ saves XP/model_<step>.pt every `--chkpt_interval` steps and XP/model.pt at
 the end, beside XP/config.json. The `.pt` files are state_dicts in the
 reference key names: `test_main --model_name model.pt` evaluates them.
 Not ported yet (ROADMAP.md): resume, bf16, dispatch windows, several GPUs,
-datasets other than Moving MNIST, vgg.
+Human3.6M and BAIR, KTH's PNG tree.
 """
 
 import json
@@ -28,10 +30,9 @@ import torch
 from srvp_tpu_torch import train_lib
 from srvp_tpu_torch.args import check_ported, create_args
 from srvp_tpu_torch.config import model_config, resolve_device, strict_fp32
-from srvp_tpu_torch.data.base import collate_uint8
+from srvp_tpu_torch.data.base import collate_uint8, load_dataset
 from srvp_tpu_torch.data.device_compose import parts_collate, to_device
 from srvp_tpu_torch.data.loader import DataLoader, PartsView, infinite_batches
-from srvp_tpu_torch.data.mmnist import MovingMNIST
 from srvp_tpu_torch.utils import checkpoint as ckpt
 
 
@@ -47,15 +48,19 @@ def train_hparams(opt):
 
 
 def loaders(opt):
-    """(train, val) loaders of the Moving MNIST folds."""
-    dataset = MovingMNIST.make_dataset(
-        opt.data_dir, opt.nx, opt.seq_len, opt.max_speed, opt.deterministic,
-        opt.ndigits, allow_synthetic=opt.allow_synthetic)
+    """(train, val) loaders of the dataset's folds, validation at
+    seq_len_test. Moving MNIST training batches are digits and trajectories
+    (composited on the device), the others whole uint8 frames."""
+    dataset = load_dataset(opt)
     trainset, valset = dataset.get_fold("train"), dataset.get_fold("val")
     if opt.seq_len_test is not None:
         valset.change_seq_len(opt.seq_len_test)
-    train = DataLoader(PartsView(trainset), opt.batch_size, seed=opt.seed,
-                       collate_fn=parts_collate)
+    if opt.dataset == "smmnist":
+        train = DataLoader(PartsView(trainset), opt.batch_size, seed=opt.seed,
+                           collate_fn=parts_collate)
+    else:
+        train = DataLoader(trainset, opt.batch_size, seed=opt.seed,
+                           collate_fn=collate_uint8)
     val = DataLoader(valset, opt.batch_size_test, seed=opt.seed + 1,
                      collate_fn=collate_uint8)
     return train, val

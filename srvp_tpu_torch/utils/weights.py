@@ -71,25 +71,45 @@ def _at(node, i):
     return node[i] if isinstance(node, list) and i < len(node) else {}
 
 
+def op_prefix(prefix, ops, j):
+    """Key prefix of op j of a stage: the stage itself when its one op is
+    a block (dcgan), else its entry j (models/conv.stage_module)."""
+    return prefix if len(ops) == 1 and ops[0][0] == "block" \
+        else f"{prefix}.{j}"
+
+
+def _stage(sd, prefix, ops, params, state):
+    """The blocks of one stage; pools and upsamples hold no parameters."""
+    for j, ((op, spec), p) in enumerate(zip(ops, params)):
+        if op == "block":
+            _block(sd, op_prefix(prefix, ops, j), spec, p, _at(state, j))
+
+
+def _networks(cfg):
+    """[(prefix, ops, (net, part, index or None))] of every stage of the
+    encoder and decoder, in state_dict order."""
+    enc_stages, enc_last = encoder_spec(cfg.archi, cfg.nc, cfg.nhx, cfg.nf)
+    dec_first, dec_stages = decoder_spec(cfg.archi, cfg.nc,
+                                         cfg.nh_inf + cfg.ny, cfg.nf,
+                                         cfg.skipco)
+    return ([(f"encoder.conv.{i}", ops, ("encoder", "stages", i))
+             for i, ops in enumerate(enc_stages)]
+            + [("encoder.last_conv", enc_last, ("encoder", "last", None)),
+               ("decoder.first_upconv", dec_first,
+                ("decoder", "first", None))]
+            + [(f"decoder.conv.{i}", ops, ("decoder", "stages", i))
+               for i, ops in enumerate(dec_stages)])
+
+
 def state_dict_from_jax(params, bn_state, cfg):
     """JAX (params, bn_state) pytrees of numpy arrays -> the port's
     state_dict (torch tensors)."""
     sd = {}
-    enc_stages, enc_last = encoder_spec(cfg.archi, cfg.nc, cfg.nhx, cfg.nf)
-    dec_first, dec_stages = decoder_spec(cfg.archi, cfg.nc, cfg.nh_inf + cfg.ny,
-                                         cfg.nf, cfg.skipco)
-    enc_p, enc_s = params["encoder"], bn_state["encoder"]
-    for i, spec in enumerate(enc_stages):
-        _block(sd, f"encoder.conv.{i}", spec, enc_p["stages"][i][0],
-               _at(_at(enc_s["stages"], i), 0))
-    _block(sd, "encoder.last_conv", enc_last, enc_p["last"][0],
-           _at(enc_s["last"], 0))
-    dec_p, dec_s = params["decoder"], bn_state["decoder"]
-    _block(sd, "decoder.first_upconv", dec_first, dec_p["first"][0],
-           _at(dec_s["first"], 0))
-    for i, spec in enumerate(dec_stages):
-        _block(sd, f"decoder.conv.{i}", spec, dec_p["stages"][i][0],
-               _at(_at(dec_s["stages"], i), 0))
+    for prefix, ops, (net, part, i) in _networks(cfg):
+        p, s = params[net][part], bn_state[net][part]
+        if i is not None:
+            p, s = p[i], _at(s, i)
+        _stage(sd, prefix, ops, p, s)
 
     _linear(sd, "w_proj.0", params["w_proj"])
     _linear(sd, "w_inf.0", params["w_inf"])
@@ -110,28 +130,22 @@ def bn_state_from_port(state_dict, cfg):
     package's bn_state pytree (numpy arrays): the inverse of the statistics
     part of state_dict_from_jax, for carrying a trained model's state back
     and for holding it against the JAX train step's state."""
-    enc_stages, enc_last = encoder_spec(cfg.archi, cfg.nc, cfg.nhx, cfg.nf)
-    dec_first, dec_stages = decoder_spec(cfg.archi, cfg.nc,
-                                         cfg.nh_inf + cfg.ny, cfg.nf,
-                                         cfg.skipco)
+    def op_state(prefix, ops, j):
+        op, spec = ops[j]
+        if op != "block" or not spec.bn:
+            return {}
+        key = f"{op_prefix(prefix, ops, j)}.1.running_"
+        return {"bn": {k: state_dict[key + k].detach().cpu().numpy()
+                       for k in ("mean", "var")}}
 
-    def block(prefix, spec):
-        if not spec.bn:
-            return [{}]
-        stats = [state_dict[f"{prefix}.1.running_{k}"].detach().cpu().numpy()
-                 for k in ("mean", "var")]
-        return [{"bn": dict(zip(("mean", "var"), stats))}]
-
-    return {
-        "encoder": {
-            "stages": [block(f"encoder.conv.{i}", sp)
-                       for i, sp in enumerate(enc_stages)],
-            "last": block("encoder.last_conv", enc_last)},
-        "decoder": {
-            "first": block("decoder.first_upconv", dec_first),
-            "stages": [block(f"decoder.conv.{i}", sp)
-                       for i, sp in enumerate(dec_stages)]},
-    }
+    tree = {"encoder": {"stages": []}, "decoder": {"stages": []}}
+    for prefix, ops, (net, part, i) in _networks(cfg):
+        states = [op_state(prefix, ops, j) for j in range(len(ops))]
+        if i is None:
+            tree[net][part] = states
+        else:
+            tree[net][part].append(states)
+    return tree
 
 
 def _parse_keypath(key):

@@ -1,7 +1,11 @@
 """The CUDA kernels against their plain versions, on the card: the prior
-rollout, and the training rollout's forward and backward (inputs drawn away
+rollout, the training rollout's forward and backward (inputs drawn away
 from ReLU kinks by kernels.parity.kink_free_inputs, a float64 run of the
-plain version as the arbiter of elements fp32 cannot resolve).
+plain version as the arbiter of elements fp32 cannot resolve), and the vgg
+pool and upsample, forward and backward, bit for bit (ties, a NaN, a
+non-contiguous input, a tensor past 2^31 elements); and the smoke's
+one-step check on the KTH model, which must fail on a planted fault in the
+upsample backward.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
 Run them on the card with:
@@ -9,14 +13,22 @@ Run them on the card with:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import shutil
+
 import pytest
 import torch
 
-from srvp_tpu_torch.config import strict_fp32
+import chip_smoke
+from srvp_tpu_torch import train_main
+from srvp_tpu_torch.config import model_config, strict_fp32
+from srvp_tpu_torch.data.device_compose import to_device
+from srvp_tpu_torch.kernels import build as kbuild
 from srvp_tpu_torch.kernels import parity
 from srvp_tpu_torch.kernels import rollout as krollout
 from srvp_tpu_torch.kernels import rollout_train as krt
+from srvp_tpu_torch.kernels import spatial as ksp
 from srvp_tpu_torch.models.mlp import MLP
+from srvp_tpu_torch.models.srvp import SRVP
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +138,138 @@ def test_train_kernels_reject_bad_inputs(cuda):
     for args in bad:
         with pytest.raises(ValueError):
             krt.train_rollout(q, pz, dyn, *args)
+
+
+def _bits_equal(a, b):
+    same = (a.view(torch.int32) == b.view(torch.int32)) \
+        | (torch.isnan(a) & torch.isnan(b))
+    return a.shape == b.shape and bool(same.all())
+
+
+def _tied(shape, gen, device):
+    """fp32 NCHW on the card with three integer levels (most 2x2 windows
+    tie) and a planted NaN."""
+    x = torch.randint(0, 3, shape, generator=gen, device=device).float()
+    x[0, 0, 0, 1] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("shape", [
+    (2000, 64, 64, 64),   # the KTH step's first pool
+    (37, 5, 6, 10),       # odd counts, W not a multiple of 4
+    (1, 1, 2, 2),
+])
+def test_spatial_kernels_match_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = _tied(shape, gen, cuda)
+    before = (ksp.pool_fwd_launches, ksp.pool_bwd_launches,
+              ksp.up_fwd_launches, ksp.up_bwd_launches)
+    m = ksp.max_pool2x2(x)
+    g = torch.randn(m.shape, generator=gen, device=cuda)
+    gx = ksp.max_pool2x2_bwd(x, m, g)
+    y = ksp.upsample2x(x)
+    gy = torch.randn(y.shape, generator=gen, device=cuda)
+    gu = ksp.upsample2x_bwd(gy)
+    torch.cuda.synchronize()
+    assert (ksp.pool_fwd_launches, ksp.pool_bwd_launches,
+            ksp.up_fwd_launches, ksp.up_bwd_launches) == tuple(
+                b + 1 for b in before)
+    assert torch.isnan(m).any() and torch.isnan(gx).any()
+    assert _bits_equal(m, ksp.max_pool2x2_reference(x))
+    assert _bits_equal(gx, ksp.max_pool2x2_bwd_reference(x, m, g))
+    assert _bits_equal(y, ksp.upsample2x_reference(x))
+    assert _bits_equal(gu, ksp.upsample2x_bwd_reference(gy))
+
+
+def test_spatial_autograd_matches_plain(cuda):
+    """The autograd.Functions on a non-contiguous input, against the plain
+    versions under autograd: torch.amax shares tied gradients as kernel 5
+    does, and the upsample's autograd sums each window of N(0, 1)
+    cotangents in torch's order (a few ulps of 4, so atol 2e-6)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    base = _tied((8, 6, 16, 20), gen, cuda)
+    x = base.transpose(2, 3)                 # (8, 6, 20, 16), strided
+    assert not x.is_contiguous()
+    outs = []
+    for pool, up in ((ksp.max_pool2x2, ksp.upsample2x),
+                     (ksp.max_pool2x2_reference, ksp.upsample2x_reference)):
+        leaf = x.detach().clone().requires_grad_()
+        y = up(pool(leaf))
+        g = torch.randn(y.shape, generator=torch.Generator(
+            device=cuda).manual_seed(2), device=cuda)
+        outs.append((y.detach(),) + torch.autograd.grad(y, leaf, g))
+    assert _bits_equal(outs[0][0], outs[1][0])
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=0, atol=2e-6,
+                               equal_nan=True)
+
+
+def test_spatial_pool_past_2_31_elements(cuda):
+    """(8200, 64, 64, 64) fp32, 2.15e9 elements: 64-bit indexing, checked
+    on the last frame against the plain version on that frame."""
+    x = torch.randn(8200, 64, 64, 64, device=cuda)
+    x[-1, -1, -2:, -2:] = 7.0
+    m = ksp.max_pool2x2(x)
+    assert x.numel() > 2 ** 31
+    assert float(m[-1, -1, -1, -1]) == 7.0
+    assert _bits_equal(m[-2:], ksp.max_pool2x2_reference(x[-2:]))
+    gx = ksp.max_pool2x2_bwd(x, m, torch.ones_like(m))
+    torch.cuda.synchronize()
+    assert gx[-1, -1, -2:, -2:].eq(0.25).all()
+    assert _bits_equal(gx[-2:], ksp.max_pool2x2_bwd_reference(
+        x[-2:], m[-2:], torch.ones_like(m[-2:])))
+    del gx
+    y = ksp.upsample2x(m)
+    assert _bits_equal(y[-2:], ksp.upsample2x_reference(m[-2:]))
+
+
+def test_spatial_kernels_reject_bad_inputs(cuda):
+    ok = torch.zeros(2, 3, 4, 4, device=cuda)
+    for bad in (ok[:, :, :3], ok[:, :, :, :3], ok.to(torch.bfloat16),
+                ok.double(), ok[0]):
+        with pytest.raises(ValueError):
+            ksp.max_pool2x2(bad)
+    with pytest.raises(ValueError):
+        ksp.upsample2x(ok.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        ksp.max_pool2x2_bwd(ok, torch.zeros(2, 3, 2, 2, device=cuda),
+                            torch.zeros(2, 3, 2, 2))
+
+
+UP_BWD_SUM = "gx[o] = (a.x + b.x) + (a.y + b.y);"
+
+
+def test_kth_step_check_fails_on_a_planted_fault(cuda, tmp_path, monkeypatch):
+    """chip_smoke.check_step as the smoke runs it on the KTH model (full
+    width, 25 videos of a batch of the synthetic packed tree, the float64
+    arbiter), from seeded random weights: it passes with the kernels as
+    built, and fails once kernel 7's window sum is scaled by 1 + 1e-3, a
+    fault far below the TF32 control's error. Both readings are printed."""
+    cfg = chip_smoke.KTH_CONFIG
+    chip_smoke.write_kth_packed_tree(tmp_path, cfg["nx"], chip_smoke.SEED + 4)
+    opt = chip_smoke.train_args(str(tmp_path / "xp"), str(tmp_path), 1,
+                                cfg=cfg,
+                                batch_size=chip_smoke.KTH_TRAIN_BATCH)
+    torch.manual_seed(0)
+    state = SRVP(model_config(vars(opt))).state_dict()
+    batch = next(iter(train_main.loaders(opt)[0]))
+    batch = to_device(batch[:, :chip_smoke.KTH_CHECK_VIDEOS], "cuda")
+
+    def check():
+        return chip_smoke.check_step(opt, state, batch,
+                                     chip_smoke.KTH_KINK_MARGIN, arbiter=True)
+
+    print("sound", check())
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kbuild.CSRC_DIR, csrc)
+    src = csrc / "spatial.cu"
+    text = src.read_text()
+    assert text.count(UP_BWD_SUM) == 1
+    src.write_text(text.replace(UP_BWD_SUM, "gx[o] = ((a.x + b.x) + (a.y + "
+                                            "b.y)) * 1.001f;"))
+    monkeypatch.setattr(kbuild, "CSRC_DIR", csrc)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kbuild, "LIB_PATH", tmp_path / "build" / "lib.so")
+    monkeypatch.setattr(kbuild, "_lib", None)
+    with pytest.raises(SystemExit, match="disagrees") as fault:
+        check()
+    print("planted", fault.value)

@@ -83,7 +83,7 @@ def test_cuda_is_not_replaced_by_the_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--precision", "bfloat16"], ["--torch_amp"], ["--apex_amp"],
     ["--resume"], ["--steps_per_dispatch", "2"], ["--n_devices", "2"],
-    ["--dataset", "kth"], ["--archi", "vgg"], ["--no_device_compose"]])
+    ["--dataset", "human"], ["--dataset", "bair"], ["--no_device_compose"]])
 def test_flags_of_unported_parts_raise(tmp_path, flags):
     opt = parse(tmp_path, "--device", "cpu", *flags)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -69,8 +69,16 @@ def test_keypath_parser():
 
 
 def test_vgg_is_not_ported():
+    """(The name predates the vgg port.) vgg builds, its pools and
+    upsamples holding the reference checkpoint's key positions
+    (tests/test_torch_vgg.py holds it against JAX); an unknown network
+    still raises."""
     _, cfg = configs(archi="vgg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    keys = SRVP(cfg).state_dict()
+    assert "encoder.conv.1.1.0.weight" in keys
+    assert "encoder.conv.1.0.weight" not in keys     # the pool, index 0
+    _, cfg = configs(archi="resnet")
+    with pytest.raises(ValueError, match="resnet"):
         SRVP(cfg)
 
 
