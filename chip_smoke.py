@@ -55,10 +55,33 @@ Phases, each of which fails the script:
      steps, each launching every spatial kernel 4 times; the peak device
      memory is printed; the one-step check holds the kernels against the
      eager rollout and the plain pools and upsamples, on 25 videos, every
-     gradient in L2 norm with a float64 step as arbiter (fp32 does not
-     resolve the KTH model's gradients to the tolerance; the direct
-     readings and the arbiter's effective limit are printed beside); then
-     test_main serves the model.pt.
+     gradient in L2 norm at KTH_STEP_NORM_LIMIT of the tolerance (fp32
+     does not resolve the KTH model's gradients element by element: the
+     eager step's distance to a float64 one is printed beside); then
+     test_main serves the model.pt;
+ 10. kernel vs plain, conv stage (kernels 8-9): kernel 8 in fp32 at every
+     3x3 conv site of the KTH vgg model (19, encoder and decoder with skip
+     connections) at N = 2000 frames, the first as the frame enters (no
+     transform, act none), the others with the normalize and LeakyReLU on
+     the load, one with n_valid < N; at the workhorse site (64 -> 64 at
+     64x64) also kernel 8 in bf16 and kernel 9 (bh = 8) in fp32 and bf16.
+     y elementwise at rtol 1e-4 / atol 1e-5 with a float64 plain run as
+     arbiter (fp32; K = 9 cin reaches 9,216 terms), or within one bf16 ulp
+     (+ 1e-5) of the plain version (bf16); the statistics at rtol 1e-5 /
+     atol 1e-3 of float64 sums of the kernel's fp32 accumulator (its fp32
+     y; in bf16 the fp32 kernel's y on the same rounded values); a second
+     launch must give the same bits. Times of the kernel, the plain version
+     and the cuDNN leg (F.conv2d and the two reductions) beside the bound;
+ 11. main path, conv stage: the port's bench (srvp_tpu_torch.
+     bench_conv_stage) at the workhorse shape for kernels 8 and 9 in fp32
+     and bf16, chained, beside cuDNN; then the two-block chain of
+     tests/test_conv_stage.py:51-91 at the full size of KTH encoder stage 0
+     (kernel 8 1 -> 64, the batch norm's scale and shift, kernel 8
+     64 -> 64) against the port's eager stage (Conv2d, train-mode
+     BatchNorm2d, LeakyReLU): y at atol 3e-4 with bn_scale_shift's one-pass
+     variance and with a two-pass one, the sums at rtol 1e-4 / atol 1e-2
+     with the two-pass one, a float64 eager stage as arbiter
+     (check_conv_chain); exact launch counts.
 Then it prints one {"kernels": [...]} line and, last, the device line.
 It exits non-zero without a result when CUDA is unavailable.
 """
@@ -66,7 +89,6 @@ It exits non-zero without a result when CUDA is unavailable.
 import copy
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -75,17 +97,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from srvp_tpu_torch import test_main, train_lib, train_main
+from srvp_tpu_torch import bench_conv_stage, test_main, train_lib, train_main
 from srvp_tpu_torch.config import model_config, strict_fp32
 from srvp_tpu_torch.data.device_compose import materialize, to_device
 from srvp_tpu_torch.kernels import build as kbuild
+from srvp_tpu_torch.kernels import conv_stage as kcs
 from srvp_tpu_torch.kernels import parity
+from srvp_tpu_torch.kernels.peaks import (PEAK_FLOPS, PEAK_HBM_BYTES,
+                                         bound_ms, nvidia_smi_line)
 from srvp_tpu_torch.kernels import rollout as krollout
 from srvp_tpu_torch.kernels import rollout_train as krollout_train
 from srvp_tpu_torch.kernels import spatial as krspatial
+from srvp_tpu_torch.models.conv import decoder_spec, encoder_spec, stage_module
 from srvp_tpu_torch.models.lstm import lstm_apply
 from srvp_tpu_torch.models.mlp import MLP
 from srvp_tpu_torch.models.srvp import SRVP, rollout_masks
+from srvp_tpu_torch.ops.init import CONV_STD
 
 ROOT = Path(__file__).resolve().parent
 WORK_DIR = ROOT / "build" / "chip_smoke"
@@ -96,13 +123,21 @@ TRAIN_RTOL, TRAIN_ATOL = 2e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-6
 # one training step, kernel vs eager rollout (tests/test_grad_parity.py)
 STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-4, 5e-3, 5e-5
-# the conv gradients of that step in L2 norm (every gradient, on KTH), in
-# units of that tolerance: sound H100 runs read 0.0055-0.0096 on the dcgan
-# convs directly, the TF32 control 5.20-5.73 (PERF.md)
+# the dcgan step's conv gradients in L2 norm, in units of that tolerance:
+# sound H100 runs read 0.0055-0.0143, the TF32 control 5.20-6.60 (PERF.md)
 STEP_NORM_LIMIT = 0.05
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
+# every gradient of the KTH step in L2 norm, in the same units: sound runs
+# read 0.029-0.257 (ten trained states; the seeded one 0.085), a planted
+# 1e-3 fault in kernel 7 0.803-0.808, the TF32 control 3.6-17 (PERF.md)
+KTH_STEP_NORM_LIMIT = 0.5
+# what check_step holds, (group, reading, limit): on dcgan the latent
+# model's gradients element by element and the conv gradients in L2 norm;
+# on KTH, whose gradients fp32 resolves element by element in neither
+# framework, every gradient in L2 norm
+DCGAN_STEP_HELD = [("latent", "elementwise", 1.0),
+                   ("conv", "norm", STEP_NORM_LIMIT)]
+KTH_STEP_HELD = [("latent", "norm", KTH_STEP_NORM_LIMIT),
+                 ("conv", "norm", KTH_STEP_NORM_LIMIT)]
 
 # Stochastic Moving MNIST, dcgan, the flagship widths
 # (configs/smmnist-stochastic.yaml, bench.py) and the test protocol.
@@ -135,14 +170,24 @@ KTH_KINK_MARGIN = 1e-6
 # height = width), at the KTH training step's N = 100 x 20 frames
 POOL_SITES = [(64, 64), (128, 32), (256, 16), (512, 8)]
 UP_SITES = [(512, 4), (256, 8), (128, 16), (64, 32)]
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
+# the conv stage (kernels 8-9): the statistics at rtol 1e-5 / atol 1e-3 of
+# float64 sums (tests/test_conv_stage.py:45-48) and y at the rollout
+# tolerance RTOL / ATOL with a float64 plain run as arbiter (conv_check);
+# the chain of tests/test_conv_stage.py:51-91 at its own tolerances, y atol
+# 3e-4 and the sums rtol 1e-4 / atol 1e-2, stated before the first run on
+# the card; the sums then needed a float64 arbiter (check_conv_chain)
+STATS_RTOL, STATS_ATOL = 1e-5, 1e-3
+CHAIN_ATOL, CHAIN_STATS_RTOL, CHAIN_STATS_ATOL = 3e-4, 1e-4, 1e-2
+# the vgg workhorse site, (cin, cout, height = width), and kernel 9's rows
+# per block (scripts/microbench_conv.py's default)
+WORKHORSE, CLAMPED_BH = (64, 64, 64), 8
+# the bench runs of the conv stage's main path (bench_conv_stage.py at the
+# workhorse shape): kernel 8 in fp32 and bf16, kernel 9 in fp32 and bf16,
+# each leg 1 + BENCH_REPS chains of BENCH_INNER + 1 applications
+BENCH_INNER, BENCH_REPS = 2, 2
+BENCH_RUNS = [["--transform"], ["--transform", "--dtype", "bfloat16"],
+              ["--clamped", "--bh", str(CLAMPED_BH)],
+              ["--clamped", "--bh", str(CLAMPED_BH), "--dtype", "bfloat16"]]
 
 
 def cuda_ms(fn, warmup=3, iters=20):
@@ -173,9 +218,7 @@ def rollout_bound_ms(pz_layers, dyn_layers, bsz, n_steps, oversampling, ny,
     n_params = sum(w.numel() + b.numel() for w, b in pz_layers + dyn_layers)
     n_bytes = 4.0 * (n_params + bsz * ny + n_frames * bsz * nz
                      + n_steps * bsz * ny)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return bound_ms(flops, n_bytes)
 
 
 def check_rollout(name, pz_layers, dyn_layers, bsz, n_steps, oversampling,
@@ -196,13 +239,13 @@ def check_rollout(name, pz_layers, dyn_layers, bsz, n_steps, oversampling,
         ok = bool(torch.isfinite(out).all()) and worst <= 1.0
         ms = cuda_ms(lambda: krollout.prior_rollout(*args))
         plain_ms = cuda_ms(lambda: krollout.prior_rollout_reference(*args))
-    bound_ms, bound_by = rollout_bound_ms(pz_layers, dyn_layers, bsz, n_steps,
-                                          oversampling, ny, nz)
+    bound, bound_by = rollout_bound_ms(pz_layers, dyn_layers, bsz, n_steps,
+                                       oversampling, ny, nz)
     row = dict(case=name, B=bsz, n_steps=n_steps, oversampling=oversampling,
                ny=ny, nz=nz, rows_per_block=krollout.rows_per_block(bsz),
                max_abs_err=max_abs, max_rel_err=max_rel,
                err_over_tol=worst, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by)
+               bound_ms=bound, bound_by=bound_by)
     print("kernel_check " + json.dumps(row), flush=True)
     if not ok:
         raise SystemExit(f"prior_rollout kernel disagrees with its plain "
@@ -225,13 +268,8 @@ def train_rollout_bounds_ms(layers, bsz, n_steps, stash_w, nh_inf, ny, nz):
     fwd_bytes = 4.0 * (n_params + bsz * ny + rows * (nh_inf + nz) + state)
     bwd_bytes = 4.0 * (2 * n_params + bsz * ny + rows * (nh_inf + nz)
                        + 2 * state + rows * nh_inf)   # + cotangents, dhxz
-    out = []
-    for flops, n_bytes in ((2.0 * rows * macs, fwd_bytes),
-                           (4.0 * rows * macs, bwd_bytes)):
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
-        out.append((1e3 * max(t_ops, t_bytes),
-                    "operations" if t_ops >= t_bytes else "bytes"))
-    return out
+    return [bound_ms(2.0 * rows * macs, fwd_bytes),
+            bound_ms(4.0 * rows * macs, bwd_bytes)]
 
 
 def _worst(out, ref, rtol, atol):
@@ -442,6 +480,262 @@ def check_spatial(n_frames, seed):
     return largest
 
 
+def conv_sites(cfg):
+    """[(part, cin, cout, height = width)] of every 3x3 conv of cfg's vgg
+    encoder and decoder (models/conv.py's specs), in order."""
+    enc, _ = encoder_spec(cfg.archi, cfg.nc, cfg.nhx, cfg.nf)
+    _, dec = decoder_spec(cfg.archi, cfg.nc, cfg.nh_inf + cfg.ny, cfg.nf,
+                          cfg.skipco)
+    sites = []
+    # the decoder's stages start at the 4x4 stem upsampled once
+    for part, stages, hw in (("encoder", enc, cfg.nx),
+                             ("decoder", dec, cfg.nx // 8)):
+        for ops in stages:
+            for op, spec in ops:
+                if op == "maxpool":
+                    hw //= 2
+                elif op == "upsample":
+                    hw *= 2
+                elif spec.kind == "conv" and spec.kernel == 3:
+                    sites.append((part, spec.in_ch, spec.out_ch, hw))
+    return sites
+
+
+def conv_bound_ms(n, cin, cout, hw, dtype):
+    """(least ms, what bounds it, FLOPs) of one conv-stage call on an
+    H100: x read once, w, scale and shift read, y and the statistics
+    written once; 9 cin cout multiply-adds a pixel at the dtype's peak (the
+    tensor cores' for bf16, which the kernel does not use)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    flops = 2.0 * 9 * cin * cout * hw * hw * n
+    n_bytes = es * (n * (cin + cout) * hw * hw + 9 * cin * cout) \
+        + 4.0 * 2 * (cin + cout)
+    return bound_ms(flops, n_bytes, PEAK_FLOPS[dtype]) + (flops,)
+
+
+def conv_check(kind, x, w, scale=None, shift=None, act="none", n_valid=None):
+    """Kernel 8 (kind "block") or 9 ("clamped", CLAMPED_BH rows a block)
+    against its plain version on the card, in x's dtype. y: elementwise at
+    RTOL / ATOL with a float64 plain run as arbiter (parity.agreement) in
+    fp32; within one bf16 ulp + ATOL of the plain version in bf16
+    (parity.bf16_ulp_err). The statistics: at STATS_RTOL / STATS_ATOL of
+    float64 sums of the kernel's fp32 accumulator over the counted frames,
+    which is y itself in fp32 and, in bf16, the fp32 kernel's y on the same
+    rounded values (the same products summed in the same order; whether it
+    matches the bf16 run bit for bit is printed). Against the plain
+    version's statistics they are printed only, raw and with the float64 run
+    as arbiter: over 8.2 M values a channel the fp32 rounding of y alone
+    moves a sum that cancels (zero-mean y) by more than STATS_ATOL, in the
+    plain version as in the kernel. A second launch must give the same bits.
+    Times of the kernel and the cuDNN leg (bench_conv_stage.cudnn_stage)
+    over 20 calls after 3 warm-up calls, of the plain version over 5 after
+    1, beside the bound. Returns the row."""
+    n, cin, hw = x.shape[0], x.shape[1], x.shape[2]
+    cout = w.shape[0]
+    if kind == "block":
+        args = (x, w, scale, shift, act, n_valid)
+        kern = lambda: kcs.conv3x3_block_fwd(*args)  # noqa: E731
+        plain = lambda: kcs.conv3x3_block_fwd_reference(*args)  # noqa: E731
+        lib = lambda: bench_conv_stage.cudnn_stage(*args)  # noqa: E731
+        # the fp32 kernel on the values a bf16 run multiplies
+        kern32 = lambda: kcs.conv3x3_block_fwd(  # noqa: E731
+            kcs.activated_input(x, scale, shift, act), w.float(), act="none",
+            n_valid=n_valid)
+        y64, st64 = parity.conv_stage_f64(*args)
+    else:
+        kern = lambda: kcs.fused_conv_bn(x, w, CLAMPED_BH)  # noqa: E731
+        plain = lambda: kcs.fused_conv_bn_reference(  # noqa: E731
+            x, w, CLAMPED_BH)
+        lib = lambda: bench_conv_stage.cudnn_stage(x, w)  # noqa: E731
+        kern32 = lambda: kcs.fused_conv_bn(  # noqa: E731
+            x.float(), w.float(), CLAMPED_BH)
+        y64, st64 = parity.conv_stage_f64(x, w, bh=CLAMPED_BH)
+    counted = n if n_valid is None else n_valid
+    with torch.no_grad():
+        y, st = kern()
+        y_again, st_again = kern()
+        y_ref, st_ref = plain()
+        torch.cuda.synchronize()
+        same_bits = torch.equal(st, st_again) and torch.equal(y, y_again)
+        del y_again
+        bf16 = x.dtype == torch.bfloat16
+        if bf16:
+            y_raw = y_judged = parity.bf16_ulp_err(y, y_ref, ATOL).max().item()
+            excused = 0
+            acc, st32 = kern32()
+            as_fp32 = torch.equal(acc.bfloat16(), y) and torch.equal(st32, st)
+            del st32
+        else:
+            y_raw, y_judged, excused = parity.agreement(y, y_ref, y64, RTOL,
+                                                        ATOL)
+            acc, as_fp32 = y, None
+        st_own = kcs.batch_stats(acc.double(), counted)
+        st_err = ((st.double() - st_own).abs()
+                  / (STATS_ATOL + STATS_RTOL * st_own.abs())).max().item()
+        st_raw, st_f64, _ = parity.agreement(st, st_ref, st64, STATS_RTOL,
+                                             STATS_ATOL)
+        max_abs = (y.float() - y_ref.float()).abs().max().item()
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+        del y, y_ref, y64, acc
+        torch.cuda.empty_cache()
+        # the plain version, a yardstick and 2-4x slower, over fewer calls
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain, warmup=1, iters=5)
+        library_ms = cuda_ms(lib)
+    bound, bound_by, flops = conv_bound_ms(n, cin, cout, hw, x.dtype)
+    row = dict(kernel="conv3x3_block_fwd" if kind == "block"
+               else "fused_conv_bn", shape=[n, cin, cout, hw, hw],
+               dtype=str(x.dtype).removeprefix("torch."), n_valid=counted,
+               transform=scale is not None, act=act, max_abs_err=max_abs,
+               y_err_over_tol=y_raw, y_err_over_tol_f64=y_judged,
+               elements_excused=excused, stats_err_over_tol=st_err,
+               stats_vs_plain_err_over_tol=st_raw,
+               stats_vs_plain_err_over_tol_f64=st_f64,
+               bf16_bits_as_fp32_kernel=as_fp32, same_bits_twice=same_bits,
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound, bound_by=bound_by, tflops=flops / ms / 1e9,
+               bound_over_ms=bound / ms)
+    print("conv_check " + json.dumps(row), flush=True)
+    if not (finite and same_bits and y_judged <= 1.0 and st_err <= 1.0):
+        raise SystemExit(f"{row['kernel']} disagrees with its plain version "
+                         f"or is not deterministic: {row}")
+    return row
+
+
+def check_conv_stage(n_frames, seed):
+    """Kernel 8 in fp32 at every 3x3 conv site of the KTH vgg model
+    (conv_sites) at N frames: the first encoder site as the frame enters
+    (no transform, act none), every other with a transform and LeakyReLU,
+    the decoder's first with n_valid < N; at the workhorse site also
+    kernel 8 in bf16 and kernel 9 in fp32 and bf16 on the same inputs.
+    Returns (the site rows, {check: row} at the workhorse)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, workhorse = [], {}
+    for i, (part, cin, cout, hw) in enumerate(
+            conv_sites(model_config(KTH_CONFIG))):
+        x = torch.randn(n_frames, cin, hw, hw, generator=gen, device="cuda")
+        w = torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") \
+            * (2.0 / (9 * cin)) ** 0.5
+        scale = shift = None
+        if i > 0:
+            scale = 1 + 0.1 * torch.randn(cin, generator=gen, device="cuda")
+            shift = 0.1 * torch.randn(cin, generator=gen, device="cuda")
+        act = "none" if i == 0 else "leaky_relu"
+        n_valid = n_frames * 19 // 20 if (part, cin) == ("decoder", 1024) \
+            else None
+        row = conv_check("block", x, w, scale, shift, act, n_valid)
+        rows.append(dict(row, site=f"{part} {cin}->{cout} at {hw}x{hw}"))
+        if (cin, cout, hw) == WORKHORSE and not workhorse:
+            xb, wb = x.bfloat16(), w.bfloat16()
+            workhorse = {"block float32": row,
+                         "block bfloat16": conv_check("block", xb, wb, scale,
+                                                      shift, act),
+                         "clamped float32": conv_check("clamped", x, w),
+                         "clamped bfloat16": conv_check("clamped", xb, wb)}
+            del xb, wb
+        del x, w
+        torch.cuda.empty_cache()
+    return rows, workhorse
+
+
+def check_conv_chain(n_frames, seed):
+    """The two-block chain of tests/test_conv_stage.py:51-91 at the full size
+    of KTH encoder stage 0, on N synthetic KTH frames in [0, 1]: kernel 8
+    (1 -> 64, no transform, act none), the batch norm's (scale, shift),
+    kernel 8 (64 -> 64, the normalize and LeakyReLU on the load), against
+    the port's eager stage (nn.Conv2d, nn.BatchNorm2d in train mode,
+    LeakyReLU) with the same seeded weights (the training init), run again
+    in float64 as the arbiter of the sums. The second conv's output is held
+    at CHAIN_ATOL against the eager stage's; its sums at CHAIN_STATS_RTOL /
+    CHAIN_STATS_ATOL against the eager stage's, or no farther from the
+    float64 stage's than those are (parity.agreement): over 8.2 M values a
+    channel, an fp32 batch norm's rounding of a channel's mean and variance
+    shifts all its values alike, which moves a sum that nearly cancels past
+    that tolerance in the eager stage as in the chain. Both are held with
+    (scale, shift) from a two-pass variance of the first conv's output, as
+    BatchNorm2d takes it; with bn_scale_shift's one-pass variance (the JAX
+    package's E[y^2] - mean^2 in fp32) the output is held and the sums
+    printed. Returns the row."""
+    cfg = model_config(KTH_CONFIG)
+    torch.manual_seed(seed)
+    stage = stage_module(encoder_spec(cfg.archi, cfg.nc, cfg.nhx,
+                                      cfg.nf)[0][0]).cuda().train()
+    for m in stage.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            torch.nn.init.normal_(m.weight, 0.0, CONV_STD)
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            torch.nn.init.normal_(m.weight, 1.0, CONV_STD)
+    seq = KTH_CONFIG["seq_len"]
+    frames = synthetic_kth_videos(n_frames // seq, seq, cfg.nx,
+                                  np.random.RandomState(seed))
+    x = torch.from_numpy(frames).cuda().float().div(255).reshape(
+        -1, 1, cfg.nx, cfg.nx)
+    n, hw = x.shape[0], cfg.nx * cfg.nx
+    (conv1, bn1, _), (conv2, _, _) = stage
+    row = dict(shape=[n, 64, cfg.nx, cfg.nx])
+    with torch.no_grad():
+        eager = conv2(stage[0](x))
+        st_eager = kcs.batch_stats(eager.double(), n)
+        stage64 = copy.deepcopy(stage).double()
+        st64 = kcs.batch_stats(stage64[1][0](stage64[0](x.double())), n)
+        del stage64
+        row["eager_stats_vs_f64_err_over_tol"] = ((st_eager - st64).abs() / (
+            CHAIN_STATS_ATOL + CHAIN_STATS_RTOL * st64.abs())).max().item()
+        y1, st1 = kcs.conv3x3_block_fwd(x, conv1.weight, act="none")
+        mean = y1.double().mean((0, 2, 3))
+        inv = bn1.weight.double() * torch.rsqrt(
+            y1.double().var((0, 2, 3), unbiased=False) + bn1.eps)
+        for variance, (scale, shift) in (
+                ("one_pass", kcs.bn_scale_shift(st1, bn1.weight, bn1.bias, n,
+                                                hw)),
+                ("two_pass", (inv.float(),
+                              (bn1.bias.double() - mean * inv).float()))):
+            y2, st2 = kcs.conv3x3_block_fwd(y1, conv2.weight, scale, shift,
+                                            "leaky_relu")
+            err = (y2 - eager).abs().max().item()
+            raw, judged, _ = parity.agreement(st2, st_eager, st64,
+                                              CHAIN_STATS_RTOL,
+                                              CHAIN_STATS_ATOL)
+            row.update({f"{variance}_y_max_abs_err": err,
+                        f"{variance}_y_err_over_tol": err / CHAIN_ATOL,
+                        f"{variance}_stats_err_over_tol": raw,
+                        f"{variance}_stats_err_over_tol_f64": judged,
+                        f"{variance}_finite": bool(torch.isfinite(y2).all())})
+            del y2
+    print("conv_chain " + json.dumps(row), flush=True)
+    if not (row["one_pass_finite"] and row["two_pass_finite"]
+            and row["one_pass_y_err_over_tol"] <= 1.0
+            and row["two_pass_y_err_over_tol"] <= 1.0
+            and row["two_pass_stats_err_over_tol_f64"] <= 1.0):
+        raise SystemExit(f"the kernel-8 chain disagrees with the eager "
+                         f"stage: {row}")
+    return row
+
+
+def conv_stage_path(n_frames, seed):
+    """The conv stage's main path: the port's bench (bench_conv_stage.run)
+    at the workhorse shape, BENCH_RUNS each beside the cuDNN leg, then the
+    full-size chain (check_conv_chain), with exact launch counts. Returns
+    ({run: {leg: ms}}, launch counts, the chain's row)."""
+    cin, _, hw = WORKHORSE
+    reset_launch_counts()
+    bench = {}
+    for extra in BENCH_RUNS:
+        bench[" ".join(extra)] = bench_conv_stage.run(
+            bench_conv_stage.create_args().parse_args([
+                "--c", str(cin), "--hw", str(hw), "--n", str(n_frames),
+                "--inner", str(BENCH_INNER), "--reps", str(BENCH_REPS),
+                "--cudnn", *extra]))
+        torch.cuda.empty_cache()
+    chain = check_conv_chain(n_frames, seed)
+    counts = launch_counts()
+    per_leg = (BENCH_REPS + 1) * (BENCH_INNER + 1)
+    expect_launches("conv stage path", counts, dict(
+        conv3x3_block=2 * per_leg + 3, conv3x3_clamped=2 * per_leg))
+    print("conv_path " + json.dumps(dict(bench=bench, launches=counts)),
+          flush=True)
+    return bench, counts, chain
+
+
 def synthetic_sequences(n, seq_len, nx, seed, n_glyphs=2, size=28,
                         max_speed=4):
     """uint8 (T, N, H, W) moving-glyph videos: soft random strokes that move
@@ -535,7 +829,9 @@ def launch_counts():
                 maxpool_fwd=krspatial.pool_fwd_launches,
                 maxpool_bwd=krspatial.pool_bwd_launches,
                 upsample_fwd=krspatial.up_fwd_launches,
-                upsample_bwd=krspatial.up_bwd_launches)
+                upsample_bwd=krspatial.up_bwd_launches,
+                conv3x3_block=kcs.block_launches,
+                conv3x3_clamped=kcs.clamped_launches)
 
 
 def reset_launch_counts():
@@ -543,6 +839,7 @@ def reset_launch_counts():
     krollout_train.fwd_launches = krollout_train.bwd_launches = 0
     krspatial.pool_fwd_launches = krspatial.pool_bwd_launches = 0
     krspatial.up_fwd_launches = krspatial.up_bwd_launches = 0
+    kcs.block_launches = kcs.clamped_launches = 0
 
 
 def expect_launches(what, counts, expected):
@@ -745,30 +1042,25 @@ def is_conv_param(name):
     return name.split(".")[0] in ("encoder", "decoder")
 
 
-def check_step(opt, state_dict, batch, margin, arbiter):
+def check_step(opt, state_dict, batch, margin, held):
     """One training step from the trainer's final state through the kernels
     and through the eager rollout and plain pools and upsamples, on the
     same kink-free draws (`margin`), with cuDNN held to deterministic
     algorithms (its default ones are not: the eager step rerun with them is
     printed), and the eager step again in float64.
 
-    The loss must agree to rtol 1e-4. The gradients are held at rtol 5e-3 /
-    atol 5e-5, in units of which each reading is printed. Without `arbiter`
-    (the dcgan flagship), directly against the eager step: the latent
-    model's gradients (each parameter outside the encoder and decoder: q_z,
+    The loss must agree to rtol 1e-4. The gradients are held directly
+    against the eager step at rtol 5e-3 / atol 5e-5, in units of which each
+    reading is printed, as `held` says (DCGAN_STEP_HELD, KTH_STEP_HELD) by
+    group: "latent" (each parameter outside the encoder and decoder: q_z,
     p_z and dynamics, which the kernels write, and the networks that dy0
-    and dhxz flow into) element by element, and each encoder and decoder
-    conv gradient, a BN-centred sum over every frame of the batch and up to
-    4096 positions that fp32 resolves in norm only, in L2 norm:
-    ||g_kernel - g_eager|| <= STEP_NORM_LIMIT (atol + rtol ||g_eager||).
-    With `arbiter` (the KTH model, whose gradients fp32 resolves in neither
-    way: the eager fp32 step misses the float64 one by far more than the
-    tolerance), every gradient in L2 norm, by that direct reading or, if
-    lower, by how much farther the kernel step is from the float64 step
-    than the eager fp32 step is, ||g_kernel - g_64|| - ||g_eager - g_64||.
-    The arbiter loosens the limit: a kernel error at right angles to the
-    eager step's own error a passes up to sqrt(L^2 + 2 a L), L the limit;
-    that effective limit is printed beside both readings.
+    and dhxz flow into) and "conv" (the encoder's and decoder's), each
+    gradient "elementwise" or in L2 "norm", ||g_kernel - g_eager|| <=
+    limit (atol + rtol ||g_eager||). A conv gradient is a BN-centred sum
+    over every frame of the batch and up to 4096 positions that fp32
+    resolves in norm only; on KTH no gradient is resolved element by
+    element. The eager fp32 step's distance to the float64 one is printed
+    beside, by group, in both readings.
 
     The eager step with TF32 matmuls and convs is the control: it must fail
     each check that is held, or the checks could not tell a lower-precision
@@ -799,57 +1091,39 @@ def check_step(opt, state_dict, batch, margin, arbiter):
     tol = lambda g: STEP_GRAD_ATOL + STEP_GRAD_RTOL * g.norm()  # noqa: E731
     groups = {"latent": [k for k in g_e if not is_conv_param(k)],
               "conv": [k for k in g_e if is_conv_param(k)]}
-    # the eager fp32 step's distance to the float64 one, by tensor
-    miss = {k: ((g_e[k].double() - g_64[k]).norm() / tol(g_64[k])).item()
-            for k in g_e}
 
-    def readings(g):
-        """By tensor, against the eager step: the direct L2 reading, the
-        arbitrated one, and the direct elementwise one."""
-        direct = {k: ((g[k] - g_e[k]).norm() / tol(g_e[k])).item() for k in g}
-        excess = {k: ((g[k].double() - g_64[k]).norm() / tol(g_64[k])).item()
-                  - miss[k] for k in g}
-        elem = {k: _worst(g[k], g_e[k], STEP_GRAD_RTOL, STEP_GRAD_ATOL)[1]
-                for k in g}
-        return dict(norm=direct, elementwise=elem, arbitrated={
-            k: min(direct[k], excess[k]) for k in g})
+    def readings(g, ref):
+        """By tensor, against `ref`: the L2 reading and the elementwise
+        one."""
+        return dict(
+            norm={k: ((g[k].to(ref[k].dtype) - ref[k]).norm()
+                      / tol(ref[k])).item() for k in g},
+            elementwise={k: _worst(g[k].to(ref[k].dtype), ref[k],
+                                   STEP_GRAD_RTOL, STEP_GRAD_ATOL)[1]
+                         for k in g})
 
     def worst(d, group):
         return max(d[k] for k in groups[group])
 
     top = lambda d, group: sorted(((k, d[k]) for k in groups[group]),  # noqa
                                   key=lambda kv: -kv[1])[:3]
-    # the readings held: (group, kind, limit)
-    held = ([("latent", "arbitrated", STEP_NORM_LIMIT),
-             ("conv", "arbitrated", STEP_NORM_LIMIT)] if arbiter else
-            [("latent", "elementwise", 1.0),
-             ("conv", "norm", STEP_NORM_LIMIT)])
     step = dict(step_videos=int(x.shape[1]), step_loss_kernel=loss_k,
                 step_loss_eager=loss_e, step_loss_f64=loss_64,
                 step_loss_tf32=loss_tf,
                 step_loss_rel_diff=abs(loss_k - loss_e) / abs(loss_e),
-                step_norm_limit=STEP_NORM_LIMIT, step_arbiter=arbiter,
-                step_held=[f"{g}_{kind}" for g, kind, _ in held])
+                step_held=[f"{g}_{kind} <= {limit}" for g, kind, limit
+                           in held])
     failed = {}
-    for arm, g in (("step", g_k), ("tf32", g_tf)):
-        r = readings(g)
+    for arm, g, ref in (("step", g_k, g_e), ("tf32", g_tf, g_e),
+                        ("f64_eager", g_e, g_64)):
+        r = readings(g, ref)
         for group in groups:
             for kind in r:
                 step[f"{arm}_{group}_{kind}_err_over_tol"] = worst(r[kind],
                                                                    group)
-            step[f"{arm}_{group}_worst"] = top(
-                r["arbitrated" if arbiter else "norm"], group)
+            step[f"{arm}_{group}_worst"] = top(r["norm"], group)
         failed[arm] = [f"{group}_{kind}" for group, kind, limit in held
                        if worst(r[kind], group) > limit]
-    for group in groups:
-        step[f"f64_eager_{group}_norm_err_over_tol"] = worst(miss, group)
-        if arbiter:
-            step[f"step_{group}_effective_norm_limit"] = float(np.sqrt(
-                STEP_NORM_LIMIT ** 2
-                + 2 * STEP_NORM_LIMIT * worst(miss, group)))
-    step["f64_eager_elementwise_err_over_tol"] = max(
-        _worst(g_e[k].double(), g_64[k], STEP_GRAD_RTOL, STEP_GRAD_ATOL)[1]
-        for k in g_e)
     step["step_grad_eager_rerun_default_cudnn_elementwise"] = spread
     step["step_failed"], step["tf32_failed"] = failed["step"], failed["tf32"]
     if step["step_loss_rel_diff"] > STEP_LOSS_RTOL or failed["step"]:
@@ -862,13 +1136,13 @@ def check_step(opt, state_dict, batch, margin, arbiter):
 
 
 def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
-               nt_test, margin, arbiter):
+               nt_test, margin, held):
     """The trainer CLI at cfg's width through the kernels, with exact
     launch counts; one step from its final state through the kernels and
     through the eager rollout and plain pools and upsamples (check_step, on
     the first `check_videos` videos of a batch); then test_main serving the
     checkpoint it wrote on the test fold in `test_dir`. `margin` and
-    `arbiter` go to check_step. Returns the summary."""
+    `held` go to check_step. Returns the summary."""
     name = f"{cfg['dataset']}-{cfg['archi']}"
     xp_dir, data_dir = WORK_DIR / f"train_{name}", WORK_DIR / f"data_{name}"
     data_dir.mkdir(parents=True, exist_ok=True)
@@ -908,8 +1182,7 @@ def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
     batch = next(iter(train_loader))
     if cfg["dataset"] == "kth":
         batch = batch[:, :check_videos]
-    step = check_step(opt, state, to_device(batch, "cuda"), margin,
-                      arbiter)
+    step = check_step(opt, state, to_device(batch, "cuda"), margin, held)
 
     arts, _, _ = run_cli(xp_dir, test_dir, "on", nt_test, n_samples=CHUNK)
     psnr = arts["results"]["psnr"]
@@ -993,17 +1266,25 @@ def main():
     del model, kmodel
     # kernels 4-7 at every vgg site of the KTH step
     spatial = check_spatial(KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"], SEED + 10)
-
     summary = eval_path(XP_CONFIG, N_VIDEOS, XP_CONFIG["seq_len_test"], SEED)
     train_summary = train_path(
         XP_CONFIG, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCH, TRAIN_BATCH,
         WORK_DIR / "data_smmnist-dcgan", XP_CONFIG["seq_len_test"],
-        parity.KINK_MARGIN, arbiter=False)
+        parity.KINK_MARGIN, DCGAN_STEP_HELD)
     kth_summary = eval_path(KTH_CONFIG, KTH_VIDEOS, KTH_NT_GEN, SEED)
     kth_train = train_path(
         KTH_CONFIG, KTH_TRAIN_STEPS, KTH_TRAIN_WARMUP, KTH_TRAIN_BATCH,
         KTH_CHECK_VIDEOS, WORK_DIR / "data_kth-vgg", KTH_NT_GEN,
-        KTH_KINK_MARGIN, arbiter=True)
+        KTH_KINK_MARGIN, KTH_STEP_HELD)
+    # kernels 8-9 at every 3x3 conv site of the KTH step, then their path;
+    # last, so that the model's paths run as they did before this phase
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    conv_rows, conv_workhorse = check_conv_stage(
+        KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"], SEED + 11)
+    conv_bench, conv_counts, _ = conv_stage_path(
+        KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"], SEED + 12)
+    print(f"conv stage phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = "srvp_tpu_torch/csrc/rollout_train.cu"
     kernels = [
@@ -1035,6 +1316,24 @@ def main():
             kth_train["launches"][name], row["max_abs_err"], row["ms"],
             row["plain_ms"], row["bound_ms"], row["bound_by"],
             row["library_ms"]))
+    for name, line, check, counted in (
+            ("conv3x3_block_fwd", "srvp_tpu/ops/pallas/conv_stage.py:50",
+             "block float32", "conv3x3_block"),
+            ("fused_conv_bn", "scripts/microbench_conv.py:31",
+             "clamped float32", "conv3x3_clamped")):
+        row = conv_workhorse[check]
+        kernels.append(kernel_row(
+            name, "srvp_tpu_torch/csrc/conv_stage.cu", line,
+            conv_counts[counted], row["max_abs_err"], row["ms"],
+            row["plain_ms"], row["bound_ms"], row["bound_by"],
+            row["library_ms"]))
+    print(f"conv stage, {len(conv_rows)} KTH vgg sites at N="
+          f"{conv_rows[0]['shape'][0]} in fp32: kernel "
+          f"{sum(r['ms'] for r in conv_rows):.3f} ms, cuDNN "
+          f"{sum(r['library_ms'] for r in conv_rows):.3f} ms, plain "
+          f"{sum(r['plain_ms'] for r in conv_rows):.3f} ms, bound "
+          f"{sum(r['bound_ms'] for r in conv_rows):.3f} ms; bench "
+          f"{json.dumps(conv_bench)}", flush=True)
     print(f"whole-batch rollout B={batch_row['B']}: {batch_row['ms']:.4f} ms "
           f"(bound {batch_row['bound_ms']:.4f} ms, plain "
           f"{batch_row['plain_ms']:.4f} ms)", flush=True)

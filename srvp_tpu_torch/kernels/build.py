@@ -114,5 +114,12 @@ def load_library():
             fn = getattr(lib, name)
             fn.argtypes = [p] * n_ptrs + [ll, ll, p]
             fn.restype = i
+        # (pointers, bf16, n, cin, h, w, cout, then n_valid and act, or bh)
+        lib.srvp_conv3x3_block_fwd.argtypes = [p] * 7 + [i, ll, i, i, i, i,
+                                                         ll, i, ll, p]
+        lib.srvp_conv3x3_block_fwd.restype = i
+        lib.srvp_conv3x3_clamped_fwd.argtypes = [p] * 5 + [i, ll, i, i, i, i,
+                                                           i, ll, p]
+        lib.srvp_conv3x3_clamped_fwd.restype = i
         _lib = lib
     return _lib

@@ -5,13 +5,15 @@ without a fault of either: a ReLU input within rounding of 0, where the
 gradient jumps and two summation orders can land on different sides, and a
 long sum that cancels, which fp32 does not resolve. `kink_free_inputs` (with
 `redraw_rows`) draws inputs away from the first; `agreement` takes a float64
-run of the plain version as the arbiter of the second. chip_smoke.py and
-tests/test_torch_cuda.py use them.
+run of the plain version as the arbiter of the second (`conv_stage_f64`
+gives the conv stage's). A bf16 result is held in its own ulps
+(`bf16_ulp_err`). chip_smoke.py and tests/test_torch_cuda.py use them.
 """
 
 import torch
 import torch.nn.functional as F
 
+from srvp_tpu_torch.kernels import conv_stage as kcs
 from srvp_tpu_torch.ops.dists import rsample
 
 KINK_MARGIN, KINK_ROUNDS = 1e-5, 200
@@ -101,3 +103,39 @@ def kink_free_inputs(q_layer, pz_layers, dyn_layers, bsz, n_steps,
         fill, lambda: rows_near_kink(q_layer, pz_layers, dyn_layers, y0, hxz,
                                      eps, oversampling, margin), bsz, dev)
     return y0, hxz, eps, redrawn
+
+
+def bf16_ulp_err(out, ref, atol):
+    """Elementwise |out - ref| over (one bf16 ulp of the larger magnitude
+    + atol), for two bf16 tensors rounded from fp32 sums taken in different
+    orders: each may round to a neighbouring bf16 value, and near 0 the
+    sums' own fp32 error (atol) exceeds a bf16 ulp."""
+    a, b = out.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)   # 8 significant bits
+    return (a - b).abs() / (ulp + atol)
+
+
+@torch.no_grad()
+def conv_stage_f64(x, w, scale=None, shift=None, act="none", n_valid=None,
+                   bh=None, chunk_bytes=2 ** 30):
+    """The float64 plain run of kernel 8 (kernel 9 with `bh`) on the values
+    the kernel multiplies: x transformed, activated and rounded to its dtype
+    as the kernel does, then widened, so that it differs from the kernel by
+    the fp32 sums alone. Frame chunks of about chunk_bytes of input bound
+    its memory. Returns (y, stats) in float64."""
+    n = x.shape[0]
+    n_valid = n if n_valid is None else n_valid
+    per = max(1, chunk_bytes // (8 * max(1, x[0].numel())))
+    ys, stats = [], 0
+    for i in range(0, n, per):
+        v = kcs.activated_input(x[i:i + per], scale, shift, act).double()
+        if bh is None:
+            y, st = kcs.conv3x3_block_fwd_reference(
+                v, w.double(), act="none",
+                n_valid=min(max(n_valid - i, 0), v.shape[0]))
+        else:
+            y, st = kcs.fused_conv_bn_reference(v, w.double(), bh)
+        ys.append(y)
+        stats = stats + st
+    return torch.cat(ys), stats

@@ -33,7 +33,8 @@ def _t(x):
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def _conv_w(kernel):
+def conv_w(kernel):
+    """A JAX conv kernel, HWIO (kh, kw, cin, cout), as torch's OIHW."""
     return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
 
 
@@ -49,7 +50,7 @@ def _linear(sd, prefix, p):
 def _block(sd, prefix, spec, params, state):
     """One conv block; `state` is only read when the block has BN."""
     k = params["conv"]["kernel"]
-    w = _convt_w(k) if spec.kind == "convt" else _conv_w(k)
+    w = _convt_w(k) if spec.kind == "convt" else conv_w(k)
     sd[f"{prefix}.weight" if is_raw(spec) else f"{prefix}.0.weight"] = w
     if spec.bn:
         bn, bn_state = params["bn"], state["bn"]

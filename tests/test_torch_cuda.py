@@ -1,11 +1,13 @@
 """The CUDA kernels against their plain versions, on the card: the prior
 rollout, the training rollout's forward and backward (inputs drawn away
 from ReLU kinks by kernels.parity.kink_free_inputs, a float64 run of the
-plain version as the arbiter of elements fp32 cannot resolve), and the vgg
+plain version as the arbiter of elements fp32 cannot resolve), the vgg
 pool and upsample, forward and backward, bit for bit (ties, a NaN, a
-non-contiguous input, a tensor past 2^31 elements); and the smoke's
-one-step check on the KTH model, which must fail on a planted fault in the
-upsample backward.
+non-contiguous input, a tensor past 2^31 elements), and the conv stage,
+kernels 8 and 9 (sizes that are no tile multiple, every row on an edge,
+one input channel, n_valid < N, bf16, the same bits on every run, an input
+past 2^31 elements); and the smoke's one-step check on the KTH model, which
+must fail on a planted fault in the upsample backward.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
 Run them on the card with:
@@ -23,6 +25,7 @@ from srvp_tpu_torch import train_main
 from srvp_tpu_torch.config import model_config, strict_fp32
 from srvp_tpu_torch.data.device_compose import to_device
 from srvp_tpu_torch.kernels import build as kbuild
+from srvp_tpu_torch.kernels import conv_stage as kcs
 from srvp_tpu_torch.kernels import parity
 from srvp_tpu_torch.kernels import rollout as krollout
 from srvp_tpu_torch.kernels import rollout_train as krt
@@ -235,13 +238,113 @@ def test_spatial_kernels_reject_bad_inputs(cuda):
                             torch.zeros(2, 3, 2, 2))
 
 
+def _conv_inputs(shape, cout, gen, device, transform):
+    n, cin, h, w = shape
+    x = torch.randn(shape, generator=gen, device=device)
+    wt = torch.randn(cout, cin, 3, 3, generator=gen, device=device) \
+        * (2.0 / (9 * cin)) ** 0.5
+    if not transform:
+        return x, wt, None, None
+    return (x, wt, 1 + 0.1 * torch.randn(cin, generator=gen, device=device),
+            0.1 * torch.randn(cin, generator=gen, device=device))
+
+
+def _assert_conv_matches(y, st, ref, ref64):
+    """fp32: y at the rollout tolerance with the float64 plain run as
+    arbiter; bf16: within one bf16 ulp (+ 1e-5) of the plain version on the
+    same rounded inputs; the statistics at rtol 1e-5 / atol 1e-3 of the
+    float64 sums."""
+    y_ref = ref[0]
+    assert y.dtype == y_ref.dtype and y.shape == y_ref.shape
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    if y.dtype == torch.float32:
+        assert parity.agreement(y, y_ref, ref64[0], 1e-4, 1e-5)[1] <= 1.0
+    else:
+        assert parity.bf16_ulp_err(y, y_ref, 1e-5).max() <= 1.0
+    torch.testing.assert_close(st.double(), ref64[1], rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,act,transform,n_valid", [
+    ((5, 7, 9, 13), 70, "leaky_relu", True, 3),   # no size a tile multiple
+    ((3, 1, 2, 5), 64, "none", False, None),      # H = 2, cin = 1
+    ((4, 64, 16, 16), 128, "tanh", True, 2),      # 128-channel tiles
+    ((2, 24, 8, 40), 200, "leaky_relu", False, 1),
+    ((130, 3, 1, 1), 5, "tanh", True, 129),       # 1x1 frames, ragged pixels
+])
+def test_conv_stage_kernel_matches_plain(cuda, dtype, shape, cout, act,
+                                         transform, n_valid):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, w, scale, shift = _conv_inputs(shape, cout, gen, cuda, transform)
+    x, w = x.to(dtype), w.to(dtype)
+    args = (x, w, scale, shift, act, n_valid)
+    before = kcs.block_launches
+    y, st = kcs.conv3x3_block_fwd(*args)
+    y2, st2 = kcs.conv3x3_block_fwd(*args)
+    torch.cuda.synchronize()
+    assert kcs.block_launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)   # deterministic
+    _assert_conv_matches(y, st, kcs.conv3x3_block_fwd_reference(*args),
+                         parity.conv_stage_f64(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh", [2, 8])
+@pytest.mark.parametrize("shape,cout", [((3, 5, 16, 13), 70),
+                                        ((2, 64, 32, 32), 64)])
+def test_clamped_kernel_matches_plain(cuda, dtype, bh, shape, cout):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x, w, _, _ = _conv_inputs(shape, cout, gen, cuda, False)
+    x, w = x.to(dtype), w.to(dtype)
+    before = kcs.clamped_launches
+    y, st = kcs.fused_conv_bn(x, w, bh)
+    y2, st2 = kcs.fused_conv_bn(x, w, bh)
+    torch.cuda.synchronize()
+    assert kcs.clamped_launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    _assert_conv_matches(y, st, kcs.fused_conv_bn_reference(x, w, bh),
+                         parity.conv_stage_f64(x, w, bh=bh))
+
+
+def test_conv_stage_past_2_31_elements(cuda):
+    """(8200, 64, 64, 64) fp32 in and out, 2.15e9 elements each: 64-bit
+    indexing, checked on the last frames against the plain version there
+    (frames are independent; the statistics against float64 sums of y)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(8200, 64, 64, 64, generator=gen, device=cuda)
+    w = torch.randn(64, 64, 3, 3, generator=gen, device=cuda) / 24
+    y, st = kcs.conv3x3_block_fwd(x, w, act="none")
+    torch.cuda.synchronize()
+    assert x.numel() > 2 ** 31 and y.numel() > 2 ** 31
+    tail = (x[-2:], w, None, None, "none")
+    _assert_conv_matches(y[-2:], kcs.batch_stats(y[-2:], 2),
+                         kcs.conv3x3_block_fwd_reference(*tail),
+                         parity.conv_stage_f64(*tail))
+    st64 = sum(kcs.batch_stats(y[i:i + 1000].double(), 1000)
+               for i in range(0, 8200, 1000))
+    torch.testing.assert_close(st.double(), st64, rtol=1e-5, atol=1e-3)
+
+
+def test_conv_stage_kernels_reject_bad_inputs(cuda):
+    x = torch.zeros(2, 3, 8, 8, device=cuda)
+    w = torch.zeros(4, 3, 3, 3, device=cuda)
+    s = torch.ones(3, device=cuda)
+    for args, kw in (((x, w.cpu()), {}), ((x.double(), w.double()), {}),
+                     ((x, w), dict(scale=s.cpu(), shift=s)),
+                     ((x, w.bfloat16()), {}), ((x[0], w), {})):
+        with pytest.raises(ValueError):
+            kcs.conv3x3_block_fwd(*args, **kw)
+    with pytest.raises(ValueError):
+        kcs.fused_conv_bn(x, w, 3)
+
+
 UP_BWD_SUM = "gx[o] = (a.x + b.x) + (a.y + b.y);"
 
 
 def test_kth_step_check_fails_on_a_planted_fault(cuda, tmp_path, monkeypatch):
     """chip_smoke.check_step as the smoke runs it on the KTH model (full
-    width, 25 videos of a batch of the synthetic packed tree, the float64
-    arbiter), from seeded random weights: it passes with the kernels as
+    width, 25 videos of a batch of the synthetic packed tree, every gradient
+    in L2 norm), from seeded random weights: it passes with the kernels as
     built, and fails once kernel 7's window sum is scaled by 1 + 1e-3, a
     fault far below the TF32 control's error. Both readings are printed."""
     cfg = chip_smoke.KTH_CONFIG
@@ -256,7 +359,8 @@ def test_kth_step_check_fails_on_a_planted_fault(cuda, tmp_path, monkeypatch):
 
     def check():
         return chip_smoke.check_step(opt, state, batch,
-                                     chip_smoke.KTH_KINK_MARGIN, arbiter=True)
+                                     chip_smoke.KTH_KINK_MARGIN,
+                                     chip_smoke.KTH_STEP_HELD)
 
     print("sound", check())
     csrc = tmp_path / "csrc"

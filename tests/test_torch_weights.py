@@ -68,11 +68,10 @@ def test_keypath_parser():
         weights.unflatten_keypaths({"a.b": 1})
 
 
-def test_vgg_is_not_ported():
-    """(The name predates the vgg port.) vgg builds, its pools and
-    upsamples holding the reference checkpoint's key positions
-    (tests/test_torch_vgg.py holds it against JAX); an unknown network
-    still raises."""
+def test_vgg_builds_with_reference_keys():
+    """vgg builds, its pools and upsamples holding the reference
+    checkpoint's key positions (tests/test_torch_vgg.py holds it against
+    JAX); an unknown network still raises."""
     _, cfg = configs(archi="vgg")
     keys = SRVP(cfg).state_dict()
     assert "encoder.conv.1.1.0.weight" in keys
