@@ -57,8 +57,10 @@ Phases, each of which fails the script:
      eager rollout and the plain pools and upsamples, on 25 videos, every
      gradient in L2 norm at KTH_STEP_NORM_LIMIT of the tolerance (fp32
      does not resolve the KTH model's gradients element by element: the
-     eager step's distance to a float64 one is printed beside); then
-     test_main serves the model.pt;
+     eager step's distance to a float64 one is printed beside), on a state
+     seeded with CHECK_STATE_SEED (the trained state differs from run to
+     run; its readings are printed, not held); then test_main serves the
+     model.pt;
  10. kernel vs plain, conv stage (kernels 8-9): kernel 8 in fp32 at every
      3x3 conv site of the KTH vgg model (19, encoder and decoder with skip
      connections) at N = 2000 frames, the first as the frame enters (no
@@ -71,7 +73,10 @@ Phases, each of which fails the script:
      atol 1e-3 of float64 sums of the kernel's fp32 accumulator (its fp32
      y; in bf16 the fp32 kernel's y on the same rounded values); a second
      launch must give the same bits. Times of the kernel, the plain version
-     and the cuDNN leg (F.conv2d and the two reductions) beside the bound;
+     and the cuDNN leg (F.conv2d and the two reductions) beside the bound
+     (fp32: three TF32 products a term at the TF32 rate, and beside it the
+     CUDA cores' fp32 FMA; bf16: the bf16 rate, and beside it one TF32
+     product a term) and the TFLOP/s;
  11. main path, conv stage: the port's bench (srvp_tpu_torch.
      bench_conv_stage) at the workhorse shape for kernels 8 and 9 in fp32
      and bf16, chained, beside cuDNN; then the two-block chain of
@@ -103,7 +108,8 @@ from srvp_tpu_torch.data.device_compose import materialize, to_device
 from srvp_tpu_torch.kernels import build as kbuild
 from srvp_tpu_torch.kernels import conv_stage as kcs
 from srvp_tpu_torch.kernels import parity
-from srvp_tpu_torch.kernels.peaks import (PEAK_FLOPS, PEAK_HBM_BYTES,
+from srvp_tpu_torch.kernels.peaks import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,
+                                         PEAK_HBM_BYTES, PEAK_TF32_FLOPS,
                                          bound_ms, nvidia_smi_line)
 from srvp_tpu_torch.kernels import rollout as krollout
 from srvp_tpu_torch.kernels import rollout_train as krollout_train
@@ -128,8 +134,13 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-4, 5e-3, 5e-5
 STEP_NORM_LIMIT = 0.05
 # every gradient of the KTH step in L2 norm, in the same units: sound runs
 # read 0.029-0.257 (ten trained states; the seeded one 0.085), a planted
-# 1e-3 fault in kernel 7 0.803-0.808, the TF32 control 3.6-17 (PERF.md)
+# 1e-3 fault in kernel 7 0.803-0.808, the TF32 control 3.6-17 (PERF.md).
+# The trained state differs from run to run (cuDNN's training algorithms
+# are not deterministic), so the check is held on a state seeded with
+# CHECK_STATE_SEED, for which it reads the same on every run; the trained
+# state's readings are printed.
 KTH_STEP_NORM_LIMIT = 0.5
+CHECK_STATE_SEED = 0
 # what check_step holds, (group, reading, limit): on dcgan the latent
 # model's gradients element by element and the conv gradients in L2 norm;
 # on KTH, whose gradients fp32 resolves element by element in neither
@@ -502,15 +513,26 @@ def conv_sites(cfg):
 
 
 def conv_bound_ms(n, cin, cout, hw, dtype):
-    """(least ms, what bounds it, FLOPs) of one conv-stage call on an
-    H100: x read once, w, scale and shift read, y and the statistics
-    written once; 9 cin cout multiply-adds a pixel at the dtype's peak (the
-    tensor cores' for bf16, which the kernel does not use)."""
+    """(least ms, what bounds it, FLOPs, second bound ms) of one conv-stage
+    call on an H100: x read once, w, scale and shift read, y and the
+    statistics written once; 9 cin cout multiply-adds a pixel on the tensor
+    cores, where the kernel runs them. In fp32 an fp32-accurate product
+    takes three TF32 products (3xTF32) at 495 TFLOP/s; the second bound is
+    the same FLOPs once at the 67 TFLOP/s of fp32 FMA on the CUDA cores. In
+    bf16 the bound takes the FLOPs at the 989 TFLOP/s of bf16; the second
+    bound takes them once at the TF32 rate, which the kernel's one TF32
+    product a term runs at."""
     es = torch.empty((), dtype=dtype).element_size()
     flops = 2.0 * 9 * cin * cout * hw * hw * n
     n_bytes = es * (n * (cin + cout) * hw * hw + 9 * cin * cout) \
         + 4.0 * 2 * (cin + cout)
-    return bound_ms(flops, n_bytes, PEAK_FLOPS[dtype]) + (flops,)
+    if dtype == torch.float32:
+        bound = bound_ms(3 * flops, n_bytes, PEAK_TF32_FLOPS)
+        second = bound_ms(flops, n_bytes, PEAK_FP32_FLOPS)[0]
+    else:
+        bound = bound_ms(flops, n_bytes, PEAK_BF16_FLOPS)
+        second = bound_ms(flops, n_bytes, PEAK_TF32_FLOPS)[0]
+    return bound + (flops, second)
 
 
 def conv_check(kind, x, w, scale=None, shift=None, act="none", n_valid=None):
@@ -581,7 +603,8 @@ def conv_check(kind, x, w, scale=None, shift=None, act="none", n_valid=None):
         # the plain version, a yardstick and 2-4x slower, over fewer calls
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain, warmup=1, iters=5)
         library_ms = cuda_ms(lib)
-    bound, bound_by, flops = conv_bound_ms(n, cin, cout, hw, x.dtype)
+    bound, bound_by, flops, second = conv_bound_ms(n, cin, cout, hw,
+                                                   x.dtype)
     row = dict(kernel="conv3x3_block_fwd" if kind == "block"
                else "fused_conv_bn", shape=[n, cin, cout, hw, hw],
                dtype=str(x.dtype).removeprefix("torch."), n_valid=counted,
@@ -592,7 +615,10 @@ def conv_check(kind, x, w, scale=None, shift=None, act="none", n_valid=None):
                stats_vs_plain_err_over_tol_f64=st_f64,
                bf16_bits_as_fp32_kernel=as_fp32, same_bits_twice=same_bits,
                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound, bound_by=bound_by, tflops=flops / ms / 1e9,
+               bound_ms=bound, bound_by=bound_by,
+               second_bound_ms=second, second_bound_of=(
+                   "fp32 FMA, CUDA cores" if x.dtype == torch.float32
+                   else "one TF32 product"), tflops=flops / ms / 1e9,
                bound_over_ms=bound / ms)
     print("conv_check " + json.dumps(row), flush=True)
     if not (finite and same_bits and y_judged <= 1.0 and st_err <= 1.0):
@@ -1042,7 +1068,7 @@ def is_conv_param(name):
     return name.split(".")[0] in ("encoder", "decoder")
 
 
-def check_step(opt, state_dict, batch, margin, held):
+def check_step(opt, state_dict, batch, margin, held, hold=True):
     """One training step from the trainer's final state through the kernels
     and through the eager rollout and plain pools and upsamples, on the
     same kink-free draws (`margin`), with cuDNN held to deterministic
@@ -1064,7 +1090,7 @@ def check_step(opt, state_dict, batch, margin, held):
 
     The eager step with TF32 matmuls and convs is the control: it must fail
     each check that is held, or the checks could not tell a lower-precision
-    step."""
+    step. With `hold` off the readings are returned, not held."""
     x = materialize(batch, opt.nx)
     model = SRVP(model_config(vars(opt))).cuda()
     model.load_state_dict(state_dict)
@@ -1126,6 +1152,8 @@ def check_step(opt, state_dict, batch, margin, held):
                        if worst(r[kind], group) > limit]
     step["step_grad_eager_rerun_default_cudnn_elementwise"] = spread
     step["step_failed"], step["tf32_failed"] = failed["step"], failed["tf32"]
+    if not hold:
+        return step
     if step["step_loss_rel_diff"] > STEP_LOSS_RTOL or failed["step"]:
         raise SystemExit(f"one training step through the kernels disagrees "
                          f"with the eager one: {step}")
@@ -1135,14 +1163,23 @@ def check_step(opt, state_dict, batch, margin, held):
     return step
 
 
+def seeded_state(opt):
+    """The state_dict of cfg's model at torch's default init from
+    CHECK_STATE_SEED: the state the KTH one-step check is held on."""
+    torch.manual_seed(CHECK_STATE_SEED)
+    return SRVP(model_config(vars(opt))).state_dict()
+
+
 def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
-               nt_test, margin, held):
+               nt_test, margin, held, seeded_check=False):
     """The trainer CLI at cfg's width through the kernels, with exact
-    launch counts; one step from its final state through the kernels and
-    through the eager rollout and plain pools and upsamples (check_step, on
-    the first `check_videos` videos of a batch); then test_main serving the
-    checkpoint it wrote on the test fold in `test_dir`. `margin` and
-    `held` go to check_step. Returns the summary."""
+    launch counts; one step through the kernels and through the eager
+    rollout and plain pools and upsamples (check_step, on the first
+    `check_videos` videos of a batch), held on the trainer's final state or,
+    with `seeded_check`, on seeded_state (the final state's readings then
+    printed, not held); then test_main serving the checkpoint it wrote on
+    the test fold in `test_dir`. `margin` and `held` go to check_step.
+    Returns the summary."""
     name = f"{cfg['dataset']}-{cfg['archi']}"
     xp_dir, data_dir = WORK_DIR / f"train_{name}", WORK_DIR / f"data_{name}"
     data_dir.mkdir(parents=True, exist_ok=True)
@@ -1182,7 +1219,12 @@ def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
     batch = next(iter(train_loader))
     if cfg["dataset"] == "kth":
         batch = batch[:, :check_videos]
-    step = check_step(opt, state, to_device(batch, "cuda"), margin, held)
+    batch = to_device(batch, "cuda")
+    if seeded_check:
+        trained = check_step(opt, state, batch, margin, held, hold=False)
+        print("trained_state_step_check " + json.dumps(trained), flush=True)
+        state = seeded_state(opt)
+    step = check_step(opt, state, batch, margin, held)
 
     arts, _, _ = run_cli(xp_dir, test_dir, "on", nt_test, n_samples=CHUNK)
     psnr = arts["results"]["psnr"]
@@ -1275,7 +1317,7 @@ def main():
     kth_train = train_path(
         KTH_CONFIG, KTH_TRAIN_STEPS, KTH_TRAIN_WARMUP, KTH_TRAIN_BATCH,
         KTH_CHECK_VIDEOS, WORK_DIR / "data_kth-vgg", KTH_NT_GEN,
-        KTH_KINK_MARGIN, KTH_STEP_HELD)
+        KTH_KINK_MARGIN, KTH_STEP_HELD, seeded_check=True)
     # kernels 8-9 at every 3x3 conv site of the KTH step, then their path;
     # last, so that the model's paths run as they did before this phase
     torch.cuda.empty_cache()
@@ -1332,7 +1374,9 @@ def main():
           f"{sum(r['ms'] for r in conv_rows):.3f} ms, cuDNN "
           f"{sum(r['library_ms'] for r in conv_rows):.3f} ms, plain "
           f"{sum(r['plain_ms'] for r in conv_rows):.3f} ms, bound "
-          f"{sum(r['bound_ms'] for r in conv_rows):.3f} ms; bench "
+          f"{sum(r['bound_ms'] for r in conv_rows):.3f} ms (3xTF32; fp32 "
+          f"FMA on the CUDA cores "
+          f"{sum(r['second_bound_ms'] for r in conv_rows):.3f} ms); bench "
           f"{json.dumps(conv_bench)}", flush=True)
     print(f"whole-batch rollout B={batch_row['B']}: {batch_row['ms']:.4f} ms "
           f"(bound {batch_row['bound_ms']:.4f} ms, plain "

@@ -1,17 +1,26 @@
-"""Training CLI flags (counterpart of srvp_tpu/args.py): the flags that the
-port's trainer honours, with the JAX package's names and defaults, plus
-`--device` and `--fused_rollout`. Flags of parts that are not ported yet are
-accepted and rejected by `check_ported` with a pointer to ROADMAP.md."""
+"""Training CLI flags (counterpart of srvp_tpu/args.py): every flag of the
+JAX trainer with its name, type, default and `required`, `--config FILE`
+included, plus `--fused_rollout`. `--device` is the torch device here (the
+JAX package's `--device` is a list of ints that it ignores). Flags of parts
+that are not ported yet are accepted and rejected by `check_ported`, when
+set away from their defaults, with a pointer to ROADMAP.md."""
 
-import argparse
+from srvp_tpu_torch import configlib
 
 ARCH_TYPES = ["dcgan", "vgg"]
 DATASETS = ["smmnist", "kth", "human", "bair"]
 PRECISIONS = ["float32", "bfloat16"]
 
 
+def _nonneg_int(value):
+    i = int(value)
+    if i < 0:
+        raise ValueError(f"must be >= 0, got {value}")
+    return i
+
+
 def create_args():
-    p = argparse.ArgumentParser(
+    p = configlib.ArgumentParser(
         prog="Stochastic Latent Residual Video Prediction (training, GPU)",
         description="Trains SRVP on one GPU (PyTorch/CUDA).")
     p.add_argument("--seed", type=int, metavar="SEED", default=None,
@@ -28,12 +37,35 @@ def create_args():
     g = p.add_argument_group("Not ported yet (ROADMAP.md)")
     g.add_argument("--precision", type=str, default="float32",
                    choices=PRECISIONS, help="Only float32 is ported.")
-    g.add_argument("--torch_amp", action="store_true",
-                   help="Not ported (bfloat16 compute).")
-    g.add_argument("--apex_amp", action="store_true",
-                   help="Not ported (bfloat16 compute).")
+    amp = g.add_mutually_exclusive_group()
+    amp.add_argument("--torch_amp", action="store_true",
+                     help="Not ported (bfloat16 compute).")
+    amp.add_argument("--apex_amp", action="store_true",
+                     help="Not ported (bfloat16 compute).")
+    g.add_argument("--amp_opt_lvl", type=str, metavar="OPT_LVL",
+                   default="O1", choices=["O0", "O1", "O2", "O3"],
+                   help="Not ported (apex AMP level).")
+    g.add_argument("--keep_batchnorm_fp32", action="store_true",
+                   default=None, help="Not ported (apex AMP).")
+    g.add_argument("--apex_verbose", action="store_true",
+                   help="Not ported (apex AMP).")
     g.add_argument("--n_devices", type=int, metavar="NB", default=None,
                    help="Only 1 is ported: training runs on one card.")
+    g.add_argument("--local_rank", type=int, metavar="RANK", default=0,
+                   help="Not ported (several cards).")
+    g.add_argument("--n_dcn", type=int, metavar="NB", default=1,
+                   help="Not ported (several hosts).")
+    g.add_argument("--coordinator_address", type=str, metavar="ADDR",
+                   default=None, help="Not ported (several hosts).")
+    g.add_argument("--num_processes", type=int, metavar="NB", default=None,
+                   help="Not ported (several hosts).")
+    g.add_argument("--process_id", type=int, metavar="RANK", default=None,
+                   help="Not ported (several hosts).")
+    g.add_argument("--n_workers", type=int, metavar="NB", default=4,
+                   help="Not ported: the loader runs in the trainer's "
+                        "thread (its batches do not depend on it).")
+    g.add_argument("--profile_dir", type=str, metavar="DIR", default=None,
+                   help="Not ported (a torch.profiler trace).")
     g.add_argument("--resume", action="store_true",
                    help="Not ported (full train-state checkpoints).")
     g.add_argument("--steps_per_dispatch", type=int, metavar="K", default=1,
@@ -105,6 +137,8 @@ def create_args():
                    help="Moving MNIST: maximum digit speed.")
     d.add_argument("--deterministic", action="store_true",
                    help="Moving MNIST: deterministic bounces.")
+    d.add_argument("--subsampling", type=int, default=8,
+                   help="Human3.6M only (not ported): video sampling rate.")
     d.add_argument("--nx", type=int, metavar="SIZE", default=64,
                    help="Frame size (width and height).")
     d.add_argument("--nc", type=int, metavar="CHANNELS", required=True,
@@ -124,6 +158,10 @@ def create_args():
     e.add_argument("--chkpt_interval", type=int, metavar="STEPS",
                    default=None,
                    help="If set, save the model every given steps.")
+    e.add_argument("--keep_chkpt", type=_nonneg_int, metavar="N",
+                   default=None,
+                   help="If set, keep only the N most recent "
+                        "model_<step>.pt snapshots.")
     e.add_argument("--batch_size_test", type=int, metavar="SIZE", default=16,
                    help="Validation batch size.")
     e.add_argument("--n_iter_test", type=int, metavar="STEPS", default=25,
@@ -150,6 +188,17 @@ def check_ported(opt):
         "--steps_per_dispatch > 1": opt.steps_per_dispatch != 1,
         "--no_device_compose": opt.no_device_compose,
         "--n_devices > 1": opt.n_devices not in (None, 1),
+        "--amp_opt_lvl": opt.amp_opt_lvl != "O1",
+        "--keep_batchnorm_fp32": opt.keep_batchnorm_fp32 is not None,
+        "--apex_verbose": opt.apex_verbose,
+        "--local_rank": opt.local_rank != 0,
+        "--n_dcn": opt.n_dcn != 1,
+        "--coordinator_address": opt.coordinator_address is not None,
+        "--num_processes": opt.num_processes is not None,
+        "--process_id": opt.process_id is not None,
+        "--n_workers": opt.n_workers != 4,
+        "--profile_dir": opt.profile_dir is not None,
+        "--subsampling": opt.subsampling != 8,
         f"--dataset {opt.dataset}": opt.dataset not in ("smmnist", "kth"),
     }
     for flag, asked in todo.items():

@@ -16,7 +16,8 @@ cout) and the statistics summed into a carried accumulator, so that every
 application pays for the conv and the statistics. Each leg runs one chain
 to warm up, then --reps chains timed with CUDA events; it prints the best
 per-application ms, TFLOP/s and the share of the H100's published peak for
-the dtype (kernels/peaks.py), beside the card's name and power limit.
+the dtype (kernels/peaks.PEAK_FLOPS: for fp32 a third of the TF32 rate,
+as 3xTF32 runs), beside the card's name and power limit.
 With --profile it then lists each leg's device kernels by time over one
 more chain (torch.profiler), which names the algorithms cuDNN picked.
 
@@ -175,7 +176,8 @@ def run(a):
         out[label] = ms
         rate = flops / (ms / 1e3) / 1e12
         share = (f"{100 * rate * 1e12 / peak:.1f}% of the H100 {a.dtype} "
-                 f"peak, {peak / 1e12:.0f} TFLOP/s" if device.type == "cuda"
+                 f"tensor-core peak, {peak / 1e12:.0f} TFLOP/s"
+                 if device.type == "cuda"
                  else "host CPU time, not a device measurement")
         print(f"{label:<32} {a.dtype} N={a.n} c={a.c} hw={a.hw}: "
               f"{ms:.3f} ms/block  {rate:.2f} TFLOP/s  ({share})",

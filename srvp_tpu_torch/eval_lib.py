@@ -43,6 +43,34 @@ def _to_u8(x):
     return (x * 255.0).to(torch.uint8).transpose(0, 1)
 
 
+def fold(t, n_samples, dim):
+    """Each video's entry repeated n_samples times, video-major."""
+    return t.repeat_interleave(n_samples, dim=dim)
+
+
+def sample_rollout(model, hx, hx_z, n_samples, nt_gen, o_inf, o_gen, eps,
+                   use_kernel_rollout=True):
+    """The latent states of n_samples samples of every video, folded into
+    the batch video-major (row b*S + s): y_0 inferred from hx[:nt_inf], the
+    posterior rollout over the nt_cond = hx.shape[0] conditioning frames,
+    then the pure-prior rollout of nt_gen - 1 frames from its last state
+    (kernel 1 unless use_kernel_rollout is off). hx: (nt_cond, B, nhx),
+    hx_z its z-LSTM outputs; eps: chunk_noise(...). Returns (y_inf
+    (nt_cond, B*S, ny), y_gen (nt_gen, B*S, ny)), y_gen[0] = y_inf[-1]."""
+    eps_y, eps_inf, eps_gen = eps
+    y_0, _ = model.infer_y(fold(hx, n_samples, 1)[:model.cfg.nt_inf], eps_y)
+    gen_inf = model.generate(y_0, None, hx.shape[0], oversampling=o_inf,
+                             eps_pos=eps_inf,
+                             hx_z=fold(hx_z, n_samples, 1))
+    if use_kernel_rollout:
+        gen = model.generate_prior(gen_inf.y[-1], nt_gen, oversampling=o_gen,
+                                   eps=eps_gen)
+    else:
+        gen = model.generate(gen_inf.y[-1], None, nt_gen, oversampling=o_gen,
+                             eps_pri=eps_gen)
+    return gen_inf.y, gen.y
+
+
 @torch.no_grad()
 def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
                   use_kernel_rollout=True):
@@ -52,37 +80,23 @@ def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
     eps: chunk_noise(...). Returns (x_pred_u8 (S, B, T_pred, H, W, C),
     x_rec_u8 (B, nt_cond, H, W, C), {psnr, ssim: (S, B)}).
     """
-    cfg = model.cfg
-    eps_y, eps_inf, eps_gen = eps
-    nt_cond, bsz = x_cond.shape[0], x_cond.shape[1]
+    bsz = x_cond.shape[1]
     # deterministic conditioning work, computed once per chunk
     hx, skips = model.encode(x_cond)
     w = model.infer_w(hx)
     hx_z = lstm_apply(model.inf_z, hx)
-
-    # fold the samples into the batch, video-major
-    hx_f = hx.repeat_interleave(n_samples, dim=1)
-    hx_z_f = hx_z.repeat_interleave(n_samples, dim=1)
-    w_f = w.repeat_interleave(n_samples, dim=0)
-    skips_f = (None if skips is None
-               else [s.repeat_interleave(n_samples, dim=0) for s in skips])
-
-    y_0, _ = model.infer_y(hx_f[:cfg.nt_inf], eps_y)
-    gen_inf = model.generate(y_0, None, nt_cond, oversampling=o_inf,
-                             eps_pos=eps_inf, hx_z=hx_z_f)
+    y_inf, y_gen = sample_rollout(model, hx, hx_z, n_samples,
+                                  x_target.shape[0] + 1, o_inf, o_gen, eps,
+                                  use_kernel_rollout)
     # conditioning reconstruction of sample 0 only: rows b*S + 0
-    x_rec = model.decode(w, gen_inf.y[:, ::n_samples], skips)
-    nt_gen = x_target.shape[0] + 1
-    if use_kernel_rollout:
-        gen = model.generate_prior(gen_inf.y[-1], nt_gen, oversampling=o_gen,
-                                   eps=eps_gen)
-    else:
-        gen = model.generate(gen_inf.y[-1], None, nt_gen, oversampling=o_gen,
-                             eps_pri=eps_gen)
-    x_pred = model.decode(w_f, gen.y[1:], skips_f).clamp(0.0, 1.0)
+    x_rec = model.decode(w, y_inf[:, ::n_samples], skips)
+    skips_f = (None if skips is None
+               else [fold(s, n_samples, 0) for s in skips])
+    x_pred = model.decode(fold(w, n_samples, 0), y_gen[1:],
+                          skips_f).clamp(0.0, 1.0)
 
     t_pred = x_pred.shape[0]
-    x_target_f = x_target.repeat_interleave(n_samples, dim=1)
+    x_target_f = fold(x_target, n_samples, 1)
     psnr = psnr_from_mse(frame_mse(x_pred, x_target_f)).mean(2).mean(0)
     ssim_v = video_ssim(x_pred, x_target_f).mean(2).mean(0)
     metrics = {"psnr": psnr.reshape(bsz, n_samples).T,

@@ -114,12 +114,14 @@ def load_library():
             fn = getattr(lib, name)
             fn.argtypes = [p] * n_ptrs + [ll, ll, p]
             fn.restype = i
-        # (pointers, bf16, n, cin, h, w, cout, then n_valid and act, or bh)
+        # (pointers, bf16, n, cin, h, w, cout, then n_valid and act, or bh,
+        # then the tile: rows, frames (kernel 8 only), cols; n_tiles)
         lib.srvp_conv3x3_block_fwd.argtypes = [p] * 7 + [i, ll, i, i, i, i,
-                                                         ll, i, ll, p]
+                                                         ll, i, i, i, i, ll,
+                                                         p]
         lib.srvp_conv3x3_block_fwd.restype = i
         lib.srvp_conv3x3_clamped_fwd.argtypes = [p] * 5 + [i, ll, i, i, i, i,
-                                                           i, ll, p]
+                                                           i, i, i, ll, p]
         lib.srvp_conv3x3_clamped_fwd.restype = i
         _lib = lib
     return _lib

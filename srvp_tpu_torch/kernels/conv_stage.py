@@ -39,9 +39,11 @@ import torch.nn.functional as F
 
 LEAKY_SLOPE = 0.2   # reference LeakyReLU slope, module/conv.py
 ACTS = {"none": 0, "leaky_relu": 1, "tanh": 2}
-# the fewest output pixels a block of csrc/conv_stage.cu takes (kMinBM):
-# sizes the partials
+# the output pixels of a block of csrc/conv_stage.cu (kBM)
 TILE_M = 128
+# the most values a channel of the staged halo tile may take (its pitch in
+# shared memory) when several frames share a tile
+STAGED_MAX = 512
 
 # Launches of each kernel (one a call: the conv pass and its statistics
 # pass). Reset them before a run to count that run's.
@@ -126,6 +128,48 @@ def bn_scale_shift(stats, gamma, beta, n_valid, hw, eps=1e-5):
     return inv, beta.float() - mean * inv
 
 
+def staged_pitch(rows, frames, cols, elem_bytes):
+    """The channel pitch, in values, of a tile's staged halo in
+    csrc/conv_stage.cu: rows of a 16-byte left pad, cols + 1 values and
+    padding to 16 bytes, rows + 2 of them a frame, rounded up to 8 modulo
+    32 (so that a fragment load meets 32 banks)."""
+    vec = 16 // elem_bytes
+    wp = -(-(vec + cols + 1) // vec) * vec
+    chp = frames * (rows + 2) * wp
+    return chp + (8 - chp % 32) % 32
+
+
+def tile_plan(n, h, w, bh=None, dtype=torch.float32):
+    """(rows, frames, cols, n_tiles) of the blocks of csrc/conv_stage.cu
+    for N = n frames of h x w: a block takes `frames` frames x `rows` rows
+    x `cols` columns, at most TILE_M pixels. cols = min(w, TILE_M); kernel
+    8 (bh None) takes TILE_M // cols rows, and whole frames, as many as fit
+    (within STAGED_MAX), when a frame fits twice; kernel 9 takes the most
+    rows that divide bh, one frame, so that no tile crosses a block of bh
+    rows."""
+    cols = min(w, TILE_M)
+    es = torch.empty((), dtype=dtype).element_size()
+    if bh is None:
+        rows = min(h, max(1, TILE_M // cols))
+        frames = max(1, TILE_M // (h * cols)) if rows == h else 1
+        while frames > 1 and staged_pitch(rows, frames, cols, es) \
+                > STAGED_MAX:
+            frames -= 1
+    else:
+        rows = max(r for r in range(1, bh + 1)
+                   if bh % r == 0 and r * cols <= TILE_M)
+        frames = 1
+    n_tiles = -(-n // frames) * -(-h // rows) * -(-w // cols)
+    return rows, frames, cols, n_tiles
+
+
+def packed_weights(w):
+    """w (cout, cin, 3, 3) as the kernels read it: (cin, 3, 3, cout)
+    float32, the output channels of each input channel and tap contiguous
+    (bf16 weights are exact in float32). A layout change, no product."""
+    return w.permute(1, 2, 3, 0).contiguous().float()
+
+
 def _check(name, x, w):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -141,24 +185,26 @@ def _check(name, x, w):
                          f"{w.dtype} on {w.device}")
 
 
-def _launch(fn_name, x, w, scale_shift, extra):
+def _launch(fn_name, x, w, scale_shift, extra, bh=None):
     """Runs one kernel; returns (y, stats)."""
     from srvp_tpu_torch.kernels.build import load_library
     n, cin, h, ww = x.shape
     cout = w.shape[0]
-    x, w = x.contiguous(), w.contiguous()
+    x, wt = x.contiguous(), packed_weights(w)
     y = torch.empty((n, cout, h, ww), dtype=x.dtype, device=x.device)
     stats = torch.zeros((cout, 2), dtype=torch.float32, device=x.device)
-    tiles = -(-n * h * ww // TILE_M)
+    rows, frames, cols, tiles = tile_plan(n, h, ww, bh, x.dtype)
     partials = torch.empty((cout, tiles, 2), dtype=torch.float32,
                            device=x.device)
-    ptrs = [t.data_ptr() for t in (x, w)] + [
+    tile = (rows, frames, cols) if bh is None else (rows, cols)
+    ptrs = [t.data_ptr() for t in (x, wt)] + [
         None if t is None else t.data_ptr() for t in scale_shift] + [
         t.data_ptr() for t in (y, partials, stats)]
     with torch.cuda.device(x.device):
         err = getattr(load_library(), fn_name)(
             *ptrs, int(x.dtype == torch.bfloat16), n, cin, h, ww, cout,
-            *extra, tiles, torch.cuda.current_stream(x.device).cuda_stream)
+            *extra, *tile, tiles,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
     return y, stats
@@ -216,7 +262,7 @@ def fused_conv_bn(x, w, bh=8):
                          f"and H >= bh + 2, got H={h}, bh={bh}")
     if not x.is_cuda:
         return fused_conv_bn_reference(x, w, bh)
-    y, stats = _launch("srvp_conv3x3_clamped_fwd", x, w, (), (bh,))
+    y, stats = _launch("srvp_conv3x3_clamped_fwd", x, w, (), (bh,), bh)
     if y.numel():
         clamped_launches += 1
     return y, stats

@@ -9,8 +9,12 @@ import torch
 
 PEAK_FP32_FLOPS = 67e12     # fp32 FMA outside the tensor cores
 PEAK_BF16_FLOPS = 989e12    # bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 495e12    # TF32 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12    # HBM3, bytes per second
-PEAK_FLOPS = {torch.float32: PEAK_FP32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+# the rate of an fp32-accurate product on the tensor cores by storage type:
+# three TF32 products a term for fp32 (3xTF32), one bf16 product for bf16
+PEAK_FLOPS = {torch.float32: PEAK_TF32_FLOPS / 3,
+              torch.bfloat16: PEAK_BF16_FLOPS}
 
 
 def bound_ms(flops, n_bytes, peak_flops=PEAK_FP32_FLOPS):

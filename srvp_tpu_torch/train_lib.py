@@ -10,6 +10,7 @@ import dataclasses
 
 import torch
 
+from srvp_tpu_torch import eval_lib
 from srvp_tpu_torch.config import SRVPConfig
 from srvp_tpu_torch.data.device_compose import materialize, to_device
 from srvp_tpu_torch.metrics.pixel import frame_mse, psnr_from_mse
@@ -94,36 +95,42 @@ def train_step(ts, x, hp, **noise):
     return metrics
 
 
-def make_eval_batch(cfg, hp, nt):
-    """Best-of-N validation (hp.n_samples_test samples) for sequences of
-    length nt: returns a function (model, x, generator) -> (B,) prediction
-    PSNR of each video's best sample, the best chosen by all-frame PSNR
-    (first sample wins ties). Samples are folded into the batch in chunks,
-    video-major."""
-    n_samples = hp.n_samples_test
+def make_eval_batch(cfg, hp, nt, n_samples=None):
+    """Best-of-N validation (n_samples, default hp.n_samples_test) for
+    sequences of length nt: returns a function (model, x, generator, eps)
+    -> (B,) prediction PSNR of each video's best sample, the best chosen by
+    all-frame PSNR (first sample wins ties). Samples are folded into the
+    batch video-major in chunks of hp.val_samples_chunk, each rolled out as
+    the evaluation's (eval_lib.sample_rollout: posterior over the nt_cond
+    conditioning frames, then the eager prior loop) on `eps`, a list of one
+    eval_lib.chunk_noise(...) tuple per chunk, or on draws from
+    `generator` in that order."""
+    n_samples = n_samples or hp.n_samples_test
     chunk = min(hp.val_samples_chunk, n_samples)
     if n_samples % chunk:
         raise ValueError("n_samples_test must be divisible by the chunk")
+    o = hp.oversampling
 
     @torch.no_grad()
-    def eval_batch(model, x, generator):
+    def eval_batch(model, x, generator=None, eps=None):
         model.eval()
         x = materialize(x, cfg.nx)
         bsz = x.shape[1]
         hx, skips = model.encode(x[:hp.nt_cond])
-        w = model.infer_w(hx)
+        w_f = eval_lib.fold(model.infer_w(hx), chunk, 0)
+        skips_f = (None if skips is None
+                   else [eval_lib.fold(s, chunk, 0) for s in skips])
         hx_z = lstm_apply(model.inf_z, hx)
+        x_f = eval_lib.fold(x, chunk, 1)
         all_p, pred_p = [], []
-        for _ in range(n_samples // chunk):
-            fold = lambda t, d: t.repeat_interleave(chunk, dim=d)  # noqa
-            y_0, _ = model.infer_y(fold(hx, 1)[:cfg.nt_inf],
-                                   generator=generator)
-            gen = model.generate(y_0, None, nt, hp.oversampling,
-                                 hx_z=fold(hx_z, 1), generator=generator)
-            x_ = model.decode(fold(w, 0), gen.y,
-                              None if skips is None
-                              else [fold(s, 0) for s in skips])
-            psnr = psnr_from_mse(frame_mse(x_, fold(x, 1)))   # (nt, B*S, C)
+        for c in range(n_samples // chunk):
+            e = eps[c] if eps is not None else eval_lib.chunk_noise(
+                cfg, bsz, chunk, hp.nt_cond, nt, o, o, generator, x.device)
+            y_inf, y_gen = eval_lib.sample_rollout(
+                model, hx, hx_z, chunk, nt - hp.nt_cond + 1, o, o, e,
+                use_kernel_rollout=False)
+            x_ = model.decode(w_f, torch.cat([y_inf, y_gen[1:]]), skips_f)
+            psnr = psnr_from_mse(frame_mse(x_, x_f))    # (nt, B*S, C)
             all_p.append(psnr.mean(dim=(0, 2)).reshape(bsz, chunk))
             pred_p.append(psnr[hp.nt_cond:].mean(dim=(0, 2))
                           .reshape(bsz, chunk))

@@ -13,8 +13,9 @@ unless `--fused_rollout off`, and the vgg pools and upsamples always do.
 Logs loss, nll, kl_y_0, kl_z, lr and frames/s every `--log_interval` steps
 (printed, and appended to XP/metrics.jsonl), validates best-of-N prediction
 PSNR every `--val_interval` steps (saving XP/model_best.pt on improvement),
-saves XP/model_<step>.pt every `--chkpt_interval` steps and XP/model.pt at
-the end, beside XP/config.json. The `.pt` files are state_dicts in the
+saves XP/model_<step>.pt every `--chkpt_interval` steps (keeping the
+`--keep_chkpt` newest) and XP/model.pt at the end, beside XP/config.json;
+`--config FILE` (configs/*.yaml) sets the flags' defaults. The `.pt` files are state_dicts in the
 reference key names: `test_main --model_name model.pt` evaluates them.
 Not ported yet (ROADMAP.md): resume, bf16, dispatch windows, several GPUs,
 Human3.6M and BAIR, KTH's PNG tree.
@@ -132,6 +133,7 @@ def main(opt):
 
         if opt.chkpt_interval and itr % opt.chkpt_interval == 0:
             ckpt.save_model(opt.save_path, f"model_{itr}", ts.model)
+            ckpt.prune_periodic(opt.save_path, opt.keep_chkpt)
 
     print("Saving...", flush=True)
     ckpt.save_model(opt.save_path, "model", ts.model)

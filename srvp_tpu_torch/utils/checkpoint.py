@@ -25,6 +25,25 @@ def save_model(save_path, name, model):
     return path
 
 
+def prune_periodic(save_path, keep):
+    """Deletes all but the `keep` most recent model_<step>.pt snapshots
+    (srvp_tpu/utils/checkpoint.py:79); model.pt, model_best.pt and
+    temporary files stay. Nothing when keep is None."""
+    if keep is None:
+        return
+    if keep < 0:
+        raise ValueError(f"--keep_chkpt must be >= 0, got {keep}")
+    steps = sorted(int(f[len("model_"):-len(".pt")])
+                   for f in os.listdir(save_path)
+                   if f.startswith("model_") and f.endswith(".pt")
+                   and f[len("model_"):-len(".pt")].isdigit())
+    for step in steps[:-keep] if keep > 0 else steps:
+        try:
+            os.remove(os.path.join(save_path, f"model_{step}.pt"))
+        except FileNotFoundError:
+            pass
+
+
 def save_config(save_path, config):
     """Writes the experiment's flags to save_path/config.json."""
     path = os.path.join(save_path, "config.json")

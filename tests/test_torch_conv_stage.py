@@ -266,3 +266,157 @@ def test_bench_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bench_conv_stage.main(tiny[2:])
+
+
+# --- the tensor-core design of csrc/conv_stage.cu, emulated on the CPU ---
+
+def tf32(a):
+    """float32 -> TF32 (10 explicit mantissa bits), rounded to nearest with
+    ties away from zero, as cvt.rna.tf32.f32; returned as float32."""
+    bits = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    sign = bits & 0x80000000
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    return (sign | mag).astype(np.uint32).view(np.float32)
+
+
+def test_tf32_rounding_of_the_emulation():
+    one_ulp = np.float32(2.0 ** -10)
+    assert tf32(np.float32(1 + one_ulp)) == 1 + one_ulp
+    assert tf32(np.float32(1 + one_ulp / 2)) == 1 + one_ulp   # tie: away
+    assert tf32(np.float32(1 + one_ulp / 2 - 2 ** -23)) == 1
+    assert tf32(np.float32(-(1 + one_ulp / 2))) == -(1 + one_ulp)
+
+
+def three_term_sums(a, w, terms):
+    """(M,) sums over K of a (M, K) times w (K,) from the TF32 split: with
+    3 terms a_s w_b + a_b w_s + a_b w_b, with 1 term a_b w_b; each product
+    of TF32 values exact in float64 and summed in float64."""
+    ab, wb = tf32(a), tf32(w)
+    as_, ws = tf32(a - ab), tf32(w - wb)
+    f = lambda u, v: u.astype(np.float64) @ v.astype(np.float64)  # noqa
+    if terms == 1:
+        return f(ab, wb)
+    return f(as_, wb) + f(ab, ws) + f(ab, wb)
+
+
+def test_three_tf32_terms_hold_fp32_accuracy_at_k_9216():
+    """At the 1024-channel vgg site K = 9 * 1024: activations after
+    LeakyReLU against He-scaled weights. The 3xTF32 product is within a
+    small part of the card checks' rtol 1e-4 / atol 1e-5 of float64; one
+    TF32 term (the small ones dropped) is not within it. (This draw reads
+    0.011 and 63.)"""
+    rng = np.random.RandomState(0)
+    k = 9 * 1024
+    a = rng.randn(256, k).astype(np.float32)
+    a = np.maximum(a, np.float32(0.2) * a)
+    w = (rng.randn(k) * np.sqrt(2.0 / k)).astype(np.float32)
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    tol = 1e-5 + 1e-4 * np.abs(exact)
+    err3 = np.abs(three_term_sums(a, w, 3) - exact) / tol
+    err1 = np.abs(three_term_sums(a, w, 1) - exact) / tol
+    assert err3.max() < 0.1
+    assert err1.max() > 1.0
+
+
+def test_every_bfloat16_value_is_exact_in_tf32():
+    bits = np.arange(2 ** 16, dtype=np.uint32) << 16
+    v = bits.view(np.float32)
+    v = v[np.isfinite(v)]
+    np.testing.assert_array_equal(tf32(v), v)
+    as_torch = torch.from_numpy(v).bfloat16().float().numpy()
+    np.testing.assert_array_equal(as_torch, v)
+
+
+def emulate_tiles(x, w, scale=None, shift=None, act="none", bh=None):
+    """y as csrc/conv_stage.cu computes it, tile by tile, from the
+    wrapper's tile plan and packed weights: each tile stages its halo
+    [F][cin][R + 2][WT + 2] (rows from in_row0, exact or clamped; zero
+    outside the image, after the activation) and sums the 9 taps of
+    shifted slices times the packed (cin, 3, 3, cout) weights. Checks
+    that the tiles cover every output once."""
+    n, cin, h, ww = x.shape
+    rows, frames, cols, n_tiles = conv_stage.tile_plan(n, h, ww, bh,
+                                                       x.dtype)
+    assert rows * frames * cols <= conv_stage.TILE_M
+    assert frames == 1 or rows == h
+    if bh is not None:
+        assert bh % rows == 0 and frames == 1
+    wt = conv_stage.packed_weights(w).double()
+    v = conv_stage.activated_input(x, scale, shift, act).double()
+    fgs, rbs, cbs = -(-n // frames), -(-h // rows), -(-ww // cols)
+    assert n_tiles == fgs * rbs * cbs
+    y = torch.zeros(n, w.shape[0], h, ww, dtype=torch.float64)
+    cover = torch.zeros(n, h, ww, dtype=torch.int64)
+    for tile in range(n_tiles):
+        cb, rb, fg = tile % cbs, (tile // cbs) % rbs, tile // (cbs * rbs)
+        f0, r0, c0 = fg * frames, rb * rows, cb * cols
+        in_row0 = r0 - 1
+        if bh is not None:
+            b = r0 // bh
+            in_row0 = min(max(b * bh - 1, 0), h - bh - 2) + r0 - b * bh
+        stage = torch.zeros(frames, cin, rows + 2, cols + 2,
+                            dtype=torch.float64)
+        for f in range(frames):
+            for rr in range(rows + 2):
+                row = in_row0 + rr
+                if f0 + f >= n or not 0 <= row < h:
+                    continue
+                for cc in range(cols + 2):
+                    col = c0 - 1 + cc
+                    if 0 <= col < ww:
+                        stage[f, :, rr, cc] = v[f0 + f, :, row, col]
+        out = sum(torch.einsum("fcrw,co->forw",
+                               stage[:, :, dy:dy + rows, dx:dx + cols],
+                               wt[:, dy, dx, :])
+                  for dy in range(3) for dx in range(3))
+        nf, nr, nc = min(frames, n - f0), min(rows, h - r0), min(cols,
+                                                                  ww - c0)
+        y[f0:f0 + nf, :, r0:r0 + nr, c0:c0 + nc] = out[:nf, :, :nr, :nc]
+        cover[f0:f0 + nf, r0:r0 + nr, c0:c0 + nc] += 1
+    assert bool((cover == 1).all())
+    return y
+
+
+@pytest.mark.parametrize("shape", [(5, 3, 9, 13), (3, 1, 2, 5),
+                                   (130, 2, 1, 1), (2, 3, 8, 40),
+                                   (3, 2, 8, 8), (2, 2, 3, 150),
+                                   (2, 4, 16, 16)])
+def test_tile_plan_and_weight_packing_reproduce_kernel_8(shape):
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(rng.randn(*shape))
+    # float32 weights (packed_weights gives the kernels float32)
+    w = torch.from_numpy(0.3 * rng.randn(5, shape[1], 3, 3)).float().double()
+    scale = torch.from_numpy(rng.rand(shape[1]) + 0.5)
+    shift = torch.from_numpy(0.3 * rng.randn(shape[1]))
+    ref, _ = conv_stage.conv3x3_block_fwd_reference(x, w, scale, shift,
+                                                    "leaky_relu")
+    got = emulate_tiles(x, w, scale, shift, "leaky_relu")
+    torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("bh", [2, 4, 8])
+@pytest.mark.parametrize("hw", [(16, 13), (32, 32), (16, 64)])
+def test_tile_plan_and_weight_packing_reproduce_kernel_9(bh, hw):
+    rng = np.random.RandomState(bh + hw[1])
+    x = torch.from_numpy(rng.randn(2, 3, *hw))
+    w = torch.from_numpy(0.3 * rng.randn(4, 3, 3, 3)).float().double()
+    ref, _ = conv_stage.fused_conv_bn_reference(x, w, bh)
+    torch.testing.assert_close(emulate_tiles(x, w, bh=bh), ref, rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_tile_plan_at_the_vgg_sites():
+    """The tiles of the KTH vgg sites (N = 2000): 128 pixels each, as
+    whole rows (W 64, 32, 16) or two whole 8 x 8 frames; kernel 9 at bh 8
+    takes 2 rows of 64, which divide bh."""
+    for hw, want in ((64, (2, 1, 64)), (32, (4, 1, 32)), (16, (8, 1, 16)),
+                     (8, (8, 2, 8))):
+        for dt in (torch.float32, torch.bfloat16):
+            plan = conv_stage.tile_plan(2000, hw, hw, dtype=dt)
+            assert plan[:3] == want
+            assert plan[3] == 2000 * hw * hw // 128
+    assert conv_stage.tile_plan(2000, 64, 64, 8)[:3] == (2, 1, 64)
+    assert conv_stage.tile_plan(3, 16, 13, 2)[:3] == (2, 1, 13)
+    # a channel's staged pitch is 8 modulo 32 (bank-conflict-free loads)
+    for args in ((2, 1, 64, 4), (8, 2, 8, 4), (2, 1, 64, 2), (3, 1, 13, 2)):
+        assert conv_stage.staged_pitch(*args) % 32 == 8

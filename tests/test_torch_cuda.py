@@ -22,7 +22,7 @@ import torch
 
 import chip_smoke
 from srvp_tpu_torch import train_main
-from srvp_tpu_torch.config import model_config, strict_fp32
+from srvp_tpu_torch.config import strict_fp32
 from srvp_tpu_torch.data.device_compose import to_device
 from srvp_tpu_torch.kernels import build as kbuild
 from srvp_tpu_torch.kernels import conv_stage as kcs
@@ -31,7 +31,6 @@ from srvp_tpu_torch.kernels import rollout as krollout
 from srvp_tpu_torch.kernels import rollout_train as krt
 from srvp_tpu_torch.kernels import spatial as ksp
 from srvp_tpu_torch.models.mlp import MLP
-from srvp_tpu_torch.models.srvp import SRVP
 
 pytestmark = pytest.mark.cuda
 
@@ -306,6 +305,47 @@ def test_clamped_kernel_matches_plain(cuda, dtype, bh, shape, cout):
                          parity.conv_stage_f64(x, w, bh=bh))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,n_valid", [
+    ((3, 20, 16, 16), 40, 2),      # cout not a multiple of the 64 of a block
+    ((4, 3, 10, 12), 64, 3),       # W = 12: no 16-byte rows in bf16
+    ((2, 1, 64, 64), 64, None),    # cin = 1, the first vgg conv
+    ((3, 20, 7, 13), 130, 1),      # W = 13: no 16-byte rows at all
+    ((2, 1024, 8, 8), 512, 1),     # K = 9 * 1024, the 1024 -> 512 site
+])
+def test_conv_stage_tensor_core_tiles(cuda, dtype, shape, cout, n_valid):
+    """Kernel 8's tiles at the edges of its design: ragged cout and W,
+    narrow and wide cin, the longest K, n_valid < N; repeats give the same
+    bits."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, w, scale, shift = _conv_inputs(shape, cout, gen, cuda, True)
+    x, w = x.to(dtype), w.to(dtype)
+    args = (x, w, scale, shift, "leaky_relu", n_valid)
+    y, st = kcs.conv3x3_block_fwd(*args)
+    y2, st2 = kcs.conv3x3_block_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    _assert_conv_matches(y, st, kcs.conv3x3_block_fwd_reference(*args),
+                         parity.conv_stage_f64(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh", [2, 4, 8])
+def test_clamped_kernel_tiles_divide_bh(cuda, dtype, bh):
+    """Kernel 9 at bh 2, 4 and 8 on 64-wide frames (2-row tiles) and
+    12-wide ones (bh-row tiles or their divisors)."""
+    for shape in ((2, 8, 32, 64), (3, 5, 16, 12)):
+        gen = torch.Generator(device=cuda).manual_seed(bh)
+        x, w, _, _ = _conv_inputs(shape, 72, gen, cuda, False)
+        x, w = x.to(dtype), w.to(dtype)
+        y, st = kcs.fused_conv_bn(x, w, bh)
+        y2, st2 = kcs.fused_conv_bn(x, w, bh)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+        _assert_conv_matches(y, st, kcs.fused_conv_bn_reference(x, w, bh),
+                             parity.conv_stage_f64(x, w, bh=bh))
+
+
 def test_conv_stage_past_2_31_elements(cuda):
     """(8200, 64, 64, 64) fp32 in and out, 2.15e9 elements each: 64-bit
     indexing, checked on the last frames against the plain version there
@@ -352,8 +392,7 @@ def test_kth_step_check_fails_on_a_planted_fault(cuda, tmp_path, monkeypatch):
     opt = chip_smoke.train_args(str(tmp_path / "xp"), str(tmp_path), 1,
                                 cfg=cfg,
                                 batch_size=chip_smoke.KTH_TRAIN_BATCH)
-    torch.manual_seed(0)
-    state = SRVP(model_config(vars(opt))).state_dict()
+    state = chip_smoke.seeded_state(opt)
     batch = next(iter(train_main.loaders(opt)[0]))
     batch = to_device(batch[:, :chip_smoke.KTH_CHECK_VIDEOS], "cuda")
 
