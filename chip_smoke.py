@@ -11,18 +11,24 @@ Phases, each of which fails the script:
      (B=160, 20 steps), at a whole batch (B=1600), at a small o=2, ny != nz
      case and at the KTH evaluation chunk (B=160, ny = nz = 50, 60
      substeps at o=2), with rtol 1e-4 / atol 1e-5 (the JAX suite's rollout
-     tolerance); times with CUDA events beside the bound;
+     tolerance), a second launch giving the same bits; each line names the
+     cluster plan (rows a tile R, blocks a cluster C, blocks, and the
+     clusters the card holds at once); times with CUDA events beside the
+     bound;
   4. kernel vs plain, training rollout (kernels 2-3): the forward kernel and
      the two backward kernels against the plain version differentiated by
      autograd, at the dcgan training step's shapes (B=128, 14 substeps,
      o=1), at a small o=2, ny != nz case and at the KTH step's (B=100, 38
      substeps, o=2): forward at rtol 2e-5 / atol 1e-6, the gradients of
      every input and weight of a loss that touches every output at rtol
-     5e-4 / atol 5e-6 (tests/test_pallas_train.py). Inputs are drawn so
-     that no ReLU input sits near the kink, and a float64 plain run
-     arbitrates elements that fp32 cannot resolve (kernels/parity.py; the
-     raw error and the elements it excused are printed); times of the
-     forward, the backward and the plain version's, beside the bounds;
+     5e-4 / atol 5e-6 (tests/test_pallas_train.py), a second backward
+     giving the same bits. Inputs are drawn so that no ReLU input sits near
+     the kink, and a float64 plain run arbitrates elements that fp32 cannot
+     resolve (kernels/parity.py; the raw error, the elements it excused and
+     the worst gradient are printed); times of the forward, the backward
+     and the plain version's, and the backward's carry pass,
+     weight-gradient pass and the rest of its wrapper apart (CUDA events
+     the wrapper records), beside the bounds of each;
   5. kernel vs plain, vgg pool and upsample (kernels 4-7): each kernel at
      every site of the KTH training step (N = 2000 frames), half of the
      frames quantised with flat 2x2 windows so that ties occur, and two
@@ -93,6 +99,7 @@ It exits non-zero without a result when CUDA is unavailable.
 
 import copy
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -233,54 +240,103 @@ def rollout_bound_ms(pz_layers, dyn_layers, bsz, n_steps, oversampling, ny,
 
 
 def check_rollout(name, pz_layers, dyn_layers, bsz, n_steps, oversampling,
-                  ny, nz, seed):
-    """Kernel vs plain version on the card; returns the measured row."""
+                  ny, nz, seed, plan=None):
+    """Kernel vs plain version on the card, with the launch plan (rows a
+    tile R, blocks a cluster C, blocks; by default the wrapper's) and the
+    clusters of it the card holds at once; a second launch must give the
+    same bits. Returns the measured row."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     y0 = torch.randn(bsz, ny, generator=gen, device="cuda")
     eps = torch.randn(n_steps, bsz, nz, generator=gen, device="cuda")
     args = (pz_layers, dyn_layers, y0, eps, ny, nz, oversampling)
+    default, hmax = krollout.launch_plan(pz_layers, dyn_layers, bsz, ny, nz)
+    plan = plan or default
+    resident = krollout.resident_clusters(ny, nz, hmax, plan, y0.device)
     with torch.no_grad():
-        out = krollout.prior_rollout(*args)
+        out = krollout.prior_rollout(*args, plan=plan)
+        again = krollout.prior_rollout(*args, plan=plan)
         ref = krollout.prior_rollout_reference(*args)
         torch.cuda.synchronize()
         diff = (out - ref).abs()
         max_abs = diff.max().item()
         max_rel = (diff / ref.abs().clamp_min(1e-30)).max().item()
         worst = (diff / (ATOL + RTOL * ref.abs())).max().item()
-        ok = bool(torch.isfinite(out).all()) and worst <= 1.0
-        ms = cuda_ms(lambda: krollout.prior_rollout(*args))
+        same_bits = bit_equal(out, again)
+        ok = bool(torch.isfinite(out).all()) and worst <= 1.0 and same_bits
+        ms = cuda_ms(lambda: krollout.prior_rollout(*args, plan=plan))
         plain_ms = cuda_ms(lambda: krollout.prior_rollout_reference(*args))
     bound, bound_by = rollout_bound_ms(pz_layers, dyn_layers, bsz, n_steps,
                                        oversampling, ny, nz)
     row = dict(case=name, B=bsz, n_steps=n_steps, oversampling=oversampling,
-               ny=ny, nz=nz, rows_per_block=krollout.rows_per_block(bsz),
+               ny=ny, nz=nz, rows=plan.rows, cluster=plan.cluster,
+               blocks=plan.tiles * plan.cluster, clusters_resident=resident,
                max_abs_err=max_abs, max_rel_err=max_rel,
-               err_over_tol=worst, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound, bound_by=bound_by)
+               err_over_tol=worst, same_bits=same_bits, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
     print("kernel_check " + json.dumps(row), flush=True)
     if not ok:
         raise SystemExit(f"prior_rollout kernel disagrees with its plain "
                          f"version ({name}): max |err| / (atol + rtol |ref|) "
-                         f"= {worst}")
+                         f"= {worst}, same bits on a second launch: "
+                         f"{same_bits}")
     return row
 
 
 def train_rollout_bounds_ms(layers, bsz, n_steps, stash_w, nh_inf, ny, nz):
-    """Least times of the training rollout's forward and backward on an H100
-    (each the larger of bytes / memory rate and FLOPs / fp32 rate), with
-    what bounds each. Every layer runs on every substep; the backward does
-    the products g W^T and g^T a, twice the forward's. Bytes: the weights,
-    each input read once and each output written once; the stash of hidden
-    pre-activations is the forward's output and the backward's input."""
+    """Least times of the training rollout's forward, backward, and the
+    backward's two passes on an H100 (each the larger of bytes / memory
+    rate and FLOPs / fp32 rate), with what bounds each. Every layer runs on
+    every substep. The carry pass does the products g W^T, the
+    weight-gradient pass g^T a, each as many as the forward's. Bytes: each
+    input read once and each output written once. The carry pass reads the
+    weights, eps, q, the stashes of hidden pre-activations and the five
+    outputs' cotangents, and writes every layer's output cotangent (G),
+    dL/dhxz and dL/dy0; the weight-gradient pass reads the layers' inputs
+    (hxz, [y, z], the stashes) and G, and writes dW and db."""
     rows = bsz * n_steps
     macs = sum(w.numel() for w, _ in layers)
     n_params = sum(w.numel() + b.numel() for w, b in layers)
+    n_weights = sum(w.numel() for w, _ in layers)
+    g_w = sum(w.shape[0] for w, _ in layers)       # G: every layer's output
     state = rows * (2 * ny + 4 * nz + stash_w)      # ys, res, q, p, zs, stash
     fwd_bytes = 4.0 * (n_params + bsz * ny + rows * (nh_inf + nz) + state)
     bwd_bytes = 4.0 * (2 * n_params + bsz * ny + rows * (nh_inf + nz)
                        + 2 * state + rows * nh_inf)   # + cotangents, dhxz
-    return [bound_ms(2.0 * rows * macs, fwd_bytes),
-            bound_ms(4.0 * rows * macs, bwd_bytes)]
+    carry_bytes = 4.0 * (n_weights + rows * (nz + 2 * nz + stash_w)
+                         + rows * (2 * ny + 5 * nz)
+                         + rows * (g_w + nh_inf) + bsz * ny)
+    wgrad_bytes = 4.0 * (rows * (nh_inf + ny + nz + stash_w + g_w)
+                         + n_params)
+    flops = 2.0 * rows * macs
+    return dict(fwd=bound_ms(flops, fwd_bytes),
+                bwd=bound_ms(2 * flops, bwd_bytes),
+                carry=bound_ms(flops, carry_bytes),
+                wgrad=bound_ms(flops, wgrad_bytes))
+
+
+def backward_split_ms(run, iters=10):
+    """Device ms of the training rollout's backward by part, from the CUDA
+    events the wrapper records around its launches (rollout_train
+    .bwd_events): the carry pass, the weight-gradient pass, and the rest of
+    the wrapper's backward (its packing and copies, and any time the device
+    waits on the host within it), mean over `iters` calls of `run` after one
+    warm-up."""
+    run()
+    krollout_train.bwd_events = []
+    try:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        evs = krollout_train.bwd_events
+    finally:
+        krollout_train.bwd_events = None
+    span = lambda e, k: e[k][0].elapsed_time(e[k][-1])  # noqa: E731
+    carry = float(np.mean([span(e, "carry") for e in evs]))
+    wgrad = float(np.mean([span(e, "wgrad") for e in evs]))
+    whole = float(np.mean([e["start"][0].elapsed_time(e["end"][0])
+                           for e in evs]))
+    return dict(carry_ms=carry, wgrad_ms=wgrad,
+                bwd_wrapper_ms=whole - carry - wgrad)
 
 
 def _worst(out, ref, rtol, atol):
@@ -290,12 +346,24 @@ def _worst(out, ref, rtol, atol):
             bool(torch.isfinite(out).all()))
 
 
+def leaf_names(n_pz, n_dyn):
+    """Names of the training rollout's differentiated inputs, in the order
+    check_train_rollout holds their gradients."""
+    return ["y0", "hxz", "q.weight", "q.bias"] + [
+        f"{mlp}{i}.{t}" for mlp, n in (("p_z", n_pz), ("dynamics", n_dyn))
+        for i in range(n) for t in ("weight", "bias")]
+
+
 def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
-                        oversampling, seed, margin=parity.KINK_MARGIN):
+                        oversampling, seed, margin=parity.KINK_MARGIN,
+                        plan=None):
     """Training-rollout kernels (forward, and backward through a loss that
     touches every output) against the plain version on the card, on
-    kink-free inputs; times the kernels' forward and backward and the plain
-    version's. Returns the measured row."""
+    kink-free inputs, the carry pass with `plan` (by default the wrapper's);
+    a second backward must give the same bits. Times the kernels' forward
+    and backward, the backward's two passes and the rest of its wrapper
+    apart, and the plain version's forward and backward. Returns the
+    measured row."""
     nh_inf, ny = q_layer[0].shape[1], pz_layers[0][0].shape[1]
     nz = q_layer[0].shape[0] // 2
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -305,6 +373,12 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
     layers = [q_layer] + list(pz_layers) + list(dyn_layers)
     flat = [t.detach() for w, b in layers for t in (w, b)]
     n_pz = len(pz_layers)
+    hmax = krollout_train.bwd_hmax(layers)
+    plan = plan or krollout_train.bwd_plan(bsz, ny, nz, hmax, y0.device)
+    resident = krollout.check_schedulable(
+        kbuild.load_library().srvp_train_rollout_bwd_clusters,
+        (ny, nz, hmax), plan, y0.device)
+    kernel = functools.partial(krollout_train.train_rollout, plan=plan)
 
     def leaves(dtype=torch.float32):
         return [t.to(dtype, copy=True).requires_grad_()
@@ -317,7 +391,7 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
 
     runs = {}
     for route, fn, dtype in (
-            ("kernel", krollout_train.train_rollout, torch.float32),
+            ("kernel", kernel, torch.float32),
             ("plain", krollout_train.train_rollout_reference, torch.float32),
             ("plain64", krollout_train.train_rollout_reference,
              torch.float64)):
@@ -325,7 +399,10 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
         outs = call(fn, lv, dtype)
         grads = torch.autograd.grad(parity.rollout_loss(outs), lv)
         runs[route] = (outs, grads, lv)
+    lv = runs["kernel"][2]
+    again = torch.autograd.grad(parity.rollout_loss(call(kernel, lv)), lv)
     torch.cuda.synchronize()
+    same_bits = all(bit_equal(a, b) for a, b in zip(runs["kernel"][1], again))
     # per output / gradient: (max |err|, finite, raw err/tol, arbitrated
     # err/tol, elements excused by the float64 arbiter)
     fwd = [_worst(a, b, TRAIN_RTOL, TRAIN_ATOL)[::2]
@@ -336,21 +413,29 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
            for a, b, c in zip(*(runs[r][1] for r in runs))]
 
     times = {}
-    for route, fn in (("kernel", krollout_train.train_rollout),
+    for route, fn in (("kernel", kernel),
                       ("plain", krollout_train.train_rollout_reference)):
         lv = runs[route][2]
         with torch.no_grad():
             times[f"{route}_fwd_ms"] = cuda_ms(lambda: call(fn, lv))
         outs = call(fn, lv)
         cots = [torch.ones_like(o) for o in outs]
-        times[f"{route}_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            outs, lv, cots, retain_graph=True))
+        backward = lambda: torch.autograd.grad(  # noqa: E731
+            outs, lv, cots, retain_graph=True)
+        times[f"{route}_bwd_ms"] = cuda_ms(backward)
+        if route == "kernel":
+            times.update(backward_split_ms(backward))
     stash_w = sum(w.shape[0] for w, _ in list(pz_layers)[:-1]) \
         + sum(w.shape[0] for w, _ in list(dyn_layers)[:-1])
-    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = train_rollout_bounds_ms(
-        layers, bsz, n_steps, stash_w, nh_inf, ny, nz)
+    bounds = train_rollout_bounds_ms(layers, bsz, n_steps, stash_w, nh_inf,
+                                     ny, nz)
     row = dict(case=name, B=bsz, n_steps=n_steps, oversampling=oversampling,
                ny=ny, nz=nz, kink_margin=margin, rows_redrawn=redrawn,
+               fwd_rows=krollout_train._rows(
+                   bsz, ny, nz, nh_inf, hmax),
+               bwd_rows=plan.rows, bwd_cluster=plan.cluster,
+               bwd_blocks=plan.tiles * plan.cluster,
+               bwd_clusters_resident=resident,
                fwd_max_abs_err=max(f[0] for f in fwd),
                fwd_err_over_tol=max(f[2] for f in fwd),
                fwd_err_over_tol_f64=max(f[3] for f in fwd),
@@ -359,17 +444,21 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
                bwd_err_over_tol=max(b[2] for b in bwd),
                bwd_err_over_tol_f64=max(b[3] for b in bwd),
                bwd_elements_excused=sum(b[4] for b in bwd),
-               fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
-               bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, **times)
+               bwd_worst=leaf_names(n_pz, len(dyn_layers))[
+                   max(range(len(bwd)), key=lambda i: bwd[i][3])],
+               bwd_same_bits=same_bits, **times)
+    for part, (ms, by) in bounds.items():
+        row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = ms, by
     row["plain_fwd_bwd_ms"] = times["plain_fwd_ms"] + times["plain_bwd_ms"]
     print("train_kernel_check " + json.dumps(row), flush=True)
     finite = all(f[1] for f in fwd) and all(b[1] for b in bwd)
-    if not finite or row["fwd_err_over_tol_f64"] > 1.0 \
+    if not finite or not same_bits or row["fwd_err_over_tol_f64"] > 1.0 \
             or row["bwd_err_over_tol_f64"] > 1.0:
         raise SystemExit(f"train_rollout kernels disagree with the plain "
                          f"version ({name}): forward err/tol "
                          f"{row['fwd_err_over_tol_f64']}, gradients err/tol "
-                         f"{row['bwd_err_over_tol_f64']}")
+                         f"{row['bwd_err_over_tol_f64']}, same bits on a "
+                         f"second backward: {same_bits}")
     return row
 
 
@@ -1342,10 +1431,12 @@ def main():
                    train_row["fwd_max_abs_err"], train_row["kernel_fwd_ms"],
                    train_row["plain_fwd_ms"], train_row["fwd_bound_ms"],
                    train_row["fwd_bound_by"]),
+        # kernel 3: its two passes' device time
         kernel_row("train_rollout_bwd", src,
                    "srvp_tpu/ops/pallas/rollout_train.py:146",
                    train_summary["launches"]["train_rollout_bwd"],
-                   train_row["bwd_max_abs_err"], train_row["kernel_bwd_ms"],
+                   train_row["bwd_max_abs_err"],
+                   train_row["carry_ms"] + train_row["wgrad_ms"],
                    train_row["plain_bwd_ms"], train_row["bwd_bound_ms"],
                    train_row["bwd_bound_by"]),
     ]
@@ -1384,10 +1475,15 @@ def main():
     for what, tr in (("dcgan", train_row), ("kth", kth_train_row)):
         print(f"{what} training rollout B={tr['B']}, K={tr['n_steps']}: "
               f"forward {tr['kernel_fwd_ms']:.4f} ms, backward "
-              f"{tr['kernel_bwd_ms']:.4f} ms (bounds "
-              f"{tr['fwd_bound_ms']:.4f} / {tr['bwd_bound_ms']:.4f} ms); "
-              f"plain forward + backward {tr['plain_fwd_bwd_ms']:.4f} ms",
-              flush=True)
+              f"{tr['kernel_bwd_ms']:.4f} ms = carry pass "
+              f"{tr['carry_ms']:.4f} (R={tr['bwd_rows']}, "
+              f"C={tr['bwd_cluster']}, {tr['bwd_blocks']} blocks) + "
+              f"weight-gradient pass {tr['wgrad_ms']:.4f} + the rest of the "
+              f"wrapper {tr['bwd_wrapper_ms']:.4f} (bounds: forward "
+              f"{tr['fwd_bound_ms']:.4f}, backward {tr['bwd_bound_ms']:.4f}, "
+              f"carry {tr['carry_bound_ms']:.4f}, weight gradients "
+              f"{tr['wgrad_bound_ms']:.4f} ms); plain forward + backward "
+              f"{tr['plain_fwd_bwd_ms']:.4f} ms", flush=True)
     print(f"kth prior rollout B={kth_eval_row['B']}, "
           f"{kth_eval_row['n_steps']} substeps: {kth_eval_row['ms']:.4f} ms "
           f"(bound {kth_eval_row['bound_ms']:.4f} ms, plain "

@@ -24,10 +24,18 @@
 //  * forward: one launch; one block per tile of R rows with the substep loop
 //    inside the block, the tile's state and activations in shared memory and
 //    the weights streamed from L2, as rollout.cu (tile_mlp.cuh);
-//  * backward, carry pass: one launch of the same shape walking the substeps
-//    backwards. Its products are g W^T, read from the weights in their
-//    (out, in) layout. It writes every layer's output cotangent g_l for every
-//    (substep, row) to device memory (G buffers), plus dL/dhxz and dL/dy_0;
+//  * backward, carry pass: one launch walking the substeps backwards, on
+//    rollout.cu's cluster design: a thread-block cluster of C blocks shares
+//    a tile of R rows (kernels/rollout.py `cluster_plan`), each rank
+//    computes its slice of the columns of every product g W^T (W read in
+//    its (out, in) layout, each rank's slice packed contiguously) and writes
+//    it into every rank's shared memory, one cluster barrier a layer. A rank
+//    reads only its columns of each stashed pre-activation for the ReLU mask
+//    and stores only its columns of every layer's output cotangent g_l to
+//    device memory (G buffers); dL/dhxz likewise, by columns. The z carry
+//    and the reparameterisation gradient are computed per row by every rank
+//    on the same values; rank 0 stores g_q, the top layers' cotangents and
+//    dL/dy_0. Each SM so takes in 1/C of the weights a substep;
 //  * backward, weight-gradient pass: dW_l = sum over the K*B (substep, row)
 //    pairs of g_l^T a_{l-1}, db_l = sum g_l. The TPU kernel accumulates dW in
 //    VMEM across its sequential grid; on the GPU blocks run at once, so each
@@ -41,10 +49,12 @@
 
 namespace {
 
-// Sum of meta[col] over layers [0, n): a width sum of an MLP's layers.
-__device__ __forceinline__ int width_sum(const int* meta, int n, int col) {
+// Sum of meta[col] over layers [0, n), a layer's rows `stride` ints apart:
+// a width sum of an MLP's layers.
+__device__ __forceinline__ int width_sum(const int* meta, int n, int stride,
+                                         int col) {
   int s = 0;
-  for (int l = 0; l < n; ++l) s += meta[4 * l + col];
+  for (int l = 0; l < n; ++l) s += meta[stride * l + col];
   return s;
 }
 
@@ -63,9 +73,9 @@ __device__ const float* mlp_fwd_stash(const float* __restrict__ params,
   float* o = buf0;
   int off = 0;
   for (int l = 0; l < n; ++l) {
-    dense<R>(params, meta + 4 * l, h, o, false, red);
+    dense<R>(params, meta + kMeta * l, h, o, false, red);
     if (l < n - 1) {
-      const int dout = meta[4 * l + 1];
+      const int dout = meta[kMeta * l + 1];
       for (int idx = tid; idx < R * dout; idx += kThreads) {
         const int r = idx / dout, j = idx % dout;
         const int row = row0 + r;
@@ -127,11 +137,11 @@ train_rollout_fwd_kernel(const float* __restrict__ params,
   float* red = buf1 + hmax * R;                 // [4 kThreads][R]
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * R;
-  const int* meta_p = meta + 4;
-  const int* meta_d = meta + 4 * (1 + n_pz);
+  const int* meta_p = meta + kMeta;
+  const int* meta_d = meta + kMeta * (1 + n_pz);
   // stash row widths: every layer's output but the last
-  const int sw_p = width_sum(meta_p, n_pz - 1, 1);
-  const int sw_d = width_sum(meta_d, n_dyn - 1, 1);
+  const int sw_p = width_sum(meta_p, n_pz - 1, kMeta, 1);
+  const int sw_d = width_sum(meta_d, n_dyn - 1, kMeta, 1);
   const int nq = 2 * nz;
 
   for (int idx = tid; idx < R * (ny + nz); idx += kThreads) {
@@ -181,44 +191,86 @@ train_rollout_fwd_kernel(const float* __restrict__ params,
   }
 }
 
-// Backward through an MLP over the tile. `meta` rows are the backward ones,
-// {dout, din, w_off, -1} with W in (out, in) layout, so dense() computes
-// g W^T. On entry `g` holds the output cotangent; every layer's output
-// cotangent is written to G (row stride g_ld, layers one after the other),
-// ReLU masks come from the stashed pre-activations, and the input cotangent
-// lands in `gin`. `g` and `other` are clobbered.
+// Epilogue of a hidden layer's backward product in the carry pass: 4 rows of
+// column c0 + j of the input cotangent are masked by ReLU' of the stashed
+// pre-activation of the layer below (this rank's columns only), stored to G
+// as that layer's output cotangent, and written into `dst` of every rank.
 template <int R>
+struct MaskStorePush {
+  float* dst;
+  int c0;
+  const float* stash;  // the layer below's pre-activation column 0
+  int s_ld;
+  float* G;            // its output cotangent's column 0
+  int g_ld, row0, B;
+  __device__ void operator()(int j, int r0, float4 v) const {
+    const int col = c0 + j;
+    float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + r0 + i;
+      const float h = row < B ? stash[(size_t)row * s_ld + col] : 0.0f;
+      if (!(h > 0.0f)) a[i] = 0.0f;
+      if (row < B) G[(size_t)row * g_ld + col] = a[i];
+    }
+    PushAll<R>{dst, c0, false}(j, r0, make_float4(a[0], a[1], a[2], a[3]));
+  }
+};
+
+// Epilogue that stores 4 rows of column c0 + j to a (B, ld) slab in device
+// memory only (the q head's dL/dhxz, which no later layer reads).
+struct StoreRows {
+  float* dst;
+  int ld, c0, row0, B;
+  __device__ void operator()(int j, int r0, float4 v) const {
+    const float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + r0 + i;
+      if (row < B) dst[(size_t)row * ld + c0 + j] = a[i];
+    }
+  }
+};
+
+// Backward through an MLP over the tile, in a cluster of C blocks. `meta`
+// rows (kMeta per layer and rank) are the backward ones: layer l's product
+// is g W_l with W_l in its (out, in) layout, so din = the layer's output
+// width and the rank's slice is of its input columns. On entry `g` holds
+// the top layer's output cotangent in every rank (stored to G by the
+// caller). Each rank computes its slice of every layer's input cotangent;
+// for l > 0 the epilogue masks it with ReLU' of the stashed pre-activation,
+// stores it to G (row stride g_ld, layers one after the other) and writes it
+// into the other buffer of every rank; layer 0's lands in `gin` of every
+// rank. One cluster barrier a layer; the buffers alternate, so no rank
+// writes a buffer a peer is still reading. `g` and `other` are clobbered.
+template <int R, int RW>
 __device__ void mlp_bwd(const float* __restrict__ params,
                         const int* __restrict__ meta, int n, float* g,
                         float* other, float* gin, float* red,
                         const float* __restrict__ stash, int s_ld, float* G,
-                        int g_ld, int row0, int B) {
-  const int tid = threadIdx.x;
+                        int g_ld, int row0, int B, int rank, int C) {
   float* cur = g;
   for (int l = n - 1; l >= 0; --l) {
-    const int dout = meta[4 * l + 0], din = meta[4 * l + 1];
-    const int off = width_sum(meta, l, 0);  // G / stash column of layer l
-    store_tile<R>(cur, dout, G, g_ld, off, row0, B);
-    float* dst = l == 0 ? gin : other;
-    dense<R>(params, meta + 4 * l, cur, dst, false, red);
+    const int* m = meta + kMeta * (l * C + rank);
     if (l > 0) {
-      // ReLU' of layer l-1's pre-activation, stashed at column off - din
-      for (int idx = tid; idx < R * din; idx += kThreads) {
-        const int r = idx / din, i = idx % din;
-        const int row = row0 + r;
-        const float h =
-            row < B ? stash[(size_t)row * s_ld + off - din + i] : 0.0f;
-        if (!(h > 0.0f)) dst[i * R + r] = 0.0f;
-      }
-      __syncthreads();
-      other = cur;
-      cur = dst;
+      // layer l - 1's output is stashed and stored at this column
+      const int off = width_sum(meta, l, kMeta * C, 0) - m[5];
+      dense_slice<R, RW>(params, m, cur, red,
+                         MaskStorePush<R>{other, m[4], stash + off, s_ld,
+                                          G + off, g_ld, row0, B});
+      tile_barrier();
+      float* t = cur;
+      cur = other;
+      other = t;
+    } else {
+      dense_slice<R, RW>(params, m, cur, red, PushAll<R>{gin, m[4], false});
+      tile_barrier();
     }
   }
 }
 
-template <int R>
-__global__ void __launch_bounds__(kThreads)
+template <int R, int RW>
+__global__ void __launch_bounds__(kThreads, 1)
 train_rollout_bwd_carry_kernel(
     const float* __restrict__ params, const int* __restrict__ meta, int n_pz,
     int n_dyn, const float* __restrict__ eps, const float* __restrict__ qpar,
@@ -239,16 +291,21 @@ train_rollout_bwd_carry_kernel(
   float* bufB = bufA + hmax * R;                // [hmax][R]
   float* red = bufB + hmax * R;                 // [4 kThreads][R]
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * R;
-  const int* meta_p = meta + 4;
-  const int* meta_d = meta + 4 * (1 + n_pz);
-  const int sw_p = width_sum(meta_p, n_pz - 1, 0);
-  const int sw_d = width_sum(meta_d, n_dyn - 1, 0);
-  const int gw_p = width_sum(meta_p, n_pz, 0);
-  const int gw_d = width_sum(meta_d, n_dyn, 0);
+  const int C = cluster_size(), rank = cluster_rank();
+  const int row0 = (blockIdx.x / C) * R;
+  const int stride = kMeta * C;  // meta rows of one layer
+  const int* meta_p = meta + stride;
+  const int* meta_d = meta + stride * (1 + n_pz);
+  const int sw_p = width_sum(meta_p, n_pz - 1, stride, 0);
+  const int sw_d = width_sum(meta_d, n_dyn - 1, stride, 0);
+  const int gw_p = width_sum(meta_p, n_pz, stride, 0);
+  const int gw_d = width_sum(meta_d, n_dyn, stride, 0);
   const int nq = 2 * nz;
 
   for (int idx = tid; idx < R * (ny + nz); idx += kThreads) gy[idx] = 0.0f;
+  // every rank has started (its shared memory exists) before any rank
+  // writes into it
+  tile_barrier();
 
   for (int k = K - 1; k >= 0; --k) {
     const size_t step = (size_t)k * B;
@@ -268,14 +325,17 @@ train_rollout_bwd_carry_kernel(
       bufA[j * R + r] = dt * (c_res + g1);
     }
     __syncthreads();
-    mlp_bwd<R>(params, meta_d, n_dyn, bufA, bufB, gyz, red,
+    if (rank == 0)
+      store_tile<R>(bufA, ny, g_dyn + step * gw_d, gw_d, gw_d - ny, row0, B);
+    mlp_bwd<R, RW>(params, meta_d, n_dyn, bufA, bufB, gyz, red,
                stash_d + step * sw_d, sw_d, g_dyn + step * gw_d, gw_d, row0,
-               B);
+               B, rank, C);
 
     // z_k: its gradient from the dynamics, from the returned zs, and the one
     // carried from later substeps that reused it. A substep that drew z
     // passes it to q through the reparameterisation; one that reused z
-    // carries it to the substep before.
+    // carries it to the substep before. Every rank does this for the whole
+    // tile, on the same values.
     const bool is_new = k % o == 0;
     for (int idx = tid; idx < R * nz; idx += kThreads) {
       const int r = idx / nz, j = idx % nz;
@@ -300,21 +360,28 @@ train_rollout_bwd_carry_kernel(
       gz[j * R + r] = carry;
     }
     __syncthreads();
-    store_tile<R>(gq, nq, g_q + step * nq, nq, 0, row0, B);
-    dense<R>(params, meta, gq, bufA, false, red);
-    store_tile<R>(bufA, nh_inf, g_hxz + step * nh_inf, nh_inf, 0, row0, B);
+    if (rank == 0) store_tile<R>(gq, nq, g_q + step * nq, nq, 0, row0, B);
+    // dL/dhxz: each rank its columns, straight to device memory
+    const int* mq = meta + kMeta * rank;
+    dense_slice<R, RW>(params, mq, gq, red,
+                       StoreRows{g_hxz + step * nh_inf, nh_inf, mq[4], row0,
+                                 B});
     __syncthreads();
 
     load_tile<R>(cot_ppar + step * nq, nq, nq, 0, bufA, row0, B);
     __syncthreads();
-    mlp_bwd<R>(params, meta_p, n_pz, bufA, bufB, gyp, red,
+    if (rank == 0)
+      store_tile<R>(bufA, nq, g_pz + step * gw_p, gw_p, gw_p - nq, row0, B);
+    mlp_bwd<R, RW>(params, meta_p, n_pz, bufA, bufB, gyp, red,
                stash_p + step * sw_p, sw_p, g_pz + step * gw_p, gw_p, row0,
-               B);
+               B, rank, C);
     for (int idx = tid; idx < R * ny; idx += kThreads)
       gy[idx] = (gy[idx] + gyz[idx]) + gyp[idx];
   }
   __syncthreads();
-  store_tile<R>(gy, ny, g_y0, ny, 0, row0, B);
+  if (rank == 0) store_tile<R>(gy, ny, g_y0, ny, 0, row0, B);
+  // the last write into another rank's shared memory came before the last
+  // cluster barrier, so every rank may exit now
 }
 
 // Weight-gradient pass. Job j (int32 row of kJobW) is one linear layer:
@@ -326,7 +393,12 @@ train_rollout_bwd_carry_kernel(
 // kTile x kTile tile of one dW (tiles of job j start at block tile0) and
 // sums over n in a fixed order: FMAs within each chunk of kTK rows, the
 // chunks Kahan-summed, so 1,792-term sums with cancellation keep the
-// accuracy of a library GEMM's blocked sums.
+// accuracy of a library GEMM's blocked sums. The block stages kStageRows
+// rows (kStageRows / kTK chunks) between two barriers, and each thread
+// loads the next stage into registers while the block multiplies this one;
+// each element's sum is the same as with one chunk a stage. (A 3xTF32
+// version on the tensor cores ran 2.3x faster and missed the gradients'
+// tolerance on KTH's q head: PERF.md.)
 constexpr int kJobW = 12;
 
 // sum += x with Kahan's compensation c: the error of a long fp32 sum stays
@@ -341,6 +413,7 @@ __device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
 
 constexpr int kTile = 64;
 constexpr int kTK = 16;
+constexpr int kStageRows = 64;
 constexpr int kWgThreads = 256;
 
 __global__ void __launch_bounds__(kWgThreads)
@@ -353,8 +426,8 @@ train_rollout_wgrad_kernel(const int* __restrict__ jobs, int n_jobs,
                            const float* __restrict__ g1,
                            const float* __restrict__ g2,
                            float* __restrict__ grads, int N) {
-  __shared__ __align__(16) float gs[kTK][kTile];
-  __shared__ __align__(16) float as[kTK][kTile];
+  __shared__ __align__(16) float gs[kStageRows][kTile];
+  __shared__ __align__(16) float as[kStageRows][kTile];
   int j = 0;
   while (j + 1 < n_jobs && (int)blockIdx.x >= jobs[(j + 1) * kJobW + 11]) ++j;
   const int* job = jobs + j * kJobW;
@@ -376,47 +449,65 @@ train_rollout_wgrad_kernel(const int* __restrict__ jobs, int n_jobs,
     for (int b = 0; b < 4; ++b) acc[a][b] = comp[a][b] = 0.0f;
   float db = 0.0f, db_comp = 0.0f;
 
-  for (int n0 = 0; n0 < N; n0 += kTK) {
+  // this thread's values of a stage: rows e / kTile, column e % kTile
+  constexpr int kPer = kStageRows * kTile / kWgThreads;
+  float rg[kPer], ra[kPer];
+  auto fetch = [&](int n0) {
 #pragma unroll
-    for (int q = 0; q < kTK * kTile / kWgThreads; ++q) {
+    for (int q = 0; q < kPer; ++q) {
       const int e = tid + q * kWgThreads;
-      const int kk = e / kTile, c = e % kTile;
-      const int n = n0 + kk;
+      const int c = e % kTile, n = n0 + e / kTile;
       float gv = 0.0f, av = 0.0f;
       if (n < N) {
         if (o0 + c < dout) gv = G[(size_t)n * g_ld + g_off + o0 + c];
         if (i0 + c < din) av = A[(size_t)n * a_ld + a_off + i0 + c];
       }
-      gs[kk][c] = gv;
-      as[kk][c] = a_relu ? fmaxf(av, 0.0f) : av;
+      rg[q] = gv;
+      ra[q] = a_relu ? fmaxf(av, 0.0f) : av;
+    }
+  };
+  fetch(0);
+  for (int s0 = 0; s0 < N; s0 += kStageRows) {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int e = tid + q * kWgThreads;
+      gs[e / kTile][e % kTile] = rg[q];
+      as[e / kTile][e % kTile] = ra[q];
     }
     __syncthreads();
-    float part[4][4];
+    if (s0 + kStageRows < N) fetch(s0 + kStageRows);
+    // no chunk starts past N (a Kahan step on a zero part would still move
+    // the sum by its compensation)
+    const int k_end = min(kStageRows, N - s0);
+    for (int k0 = 0; k0 < k_end; k0 += kTK) {
+      float part[4][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) part[a][b] = 0.0f;
+        for (int b = 0; b < 4; ++b) part[a][b] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < kTK; ++kk) {
-      const float4 gv = *reinterpret_cast<const float4*>(&gs[kk][ty * 4]);
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][tx * 4]);
-      const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
-      const float a4[4] = {av.x, av.y, av.z, av.w};
+      for (int kk = k0; kk < k0 + kTK; ++kk) {
+        const float4 gv = *reinterpret_cast<const float4*>(&gs[kk][ty * 4]);
+        const float4 av = *reinterpret_cast<const float4*>(&as[kk][tx * 4]);
+        const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
+        const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            part[a][b] = fmaf(g4[a], a4[b], part[a][b]);
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b)
-          part[a][b] = fmaf(g4[a], a4[b], part[a][b]);
-    }
+          kahan_add(acc[a][b], comp[a][b], part[a][b]);
+      if (with_bias) {
+        float dpart = 0.0f;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) kahan_add(acc[a][b], comp[a][b], part[a][b]);
-    if (with_bias) {
-      float dpart = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < kTK; ++kk) dpart += gs[kk][tid];
-      kahan_add(db, db_comp, dpart);
+        for (int kk = k0; kk < k0 + kTK; ++kk) dpart += gs[kk][tid];
+        kahan_add(db, db_comp, dpart);
+      }
     }
     __syncthreads();
   }
@@ -443,8 +534,10 @@ size_t fwd_smem(int ny, int nz, int nh_inf, int hmax) {
 
 template <int R>
 size_t bwd_smem(int ny, int nz, int hmax) {
-  return sizeof(float) * R *
-         (ny + nz + (ny + nz) + ny + 2 * nz + 2 * hmax + 4 * kThreads);
+  const size_t need = sizeof(float) * R *
+                      (ny + nz + (ny + nz) + ny + 2 * nz + 2 * hmax +
+                       4 * kThreads);
+  return need > kOneBlockSmem ? need : kOneBlockSmem;
 }
 
 template <int R>
@@ -465,6 +558,14 @@ cudaError_t launch_fwd(const float* params, const int* meta, int n_pz,
   return cudaGetLastError();
 }
 
+// the carry pass's instance for clusters of C blocks (tile_mlp.cuh
+// row_tile)
+template <int R>
+auto carry_kernel_for(int C) {
+  return C > 1 ? train_rollout_bwd_carry_kernel<R, row_tile<R>(true)>
+               : train_rollout_bwd_carry_kernel<R, row_tile<R>(false)>;
+}
+
 template <int R>
 cudaError_t launch_bwd(const float* params, const int* meta, int n_pz,
                        int n_dyn, const float* eps, const float* qpar,
@@ -473,19 +574,22 @@ cudaError_t launch_bwd(const float* params, const int* meta, int n_pz,
                        const float* cot_qpar, const float* cot_ppar,
                        const float* cot_zs, float* g_q, float* g_pz,
                        float* g_dyn, float* g_y0, float* g_hxz, int B, int ny,
-                       int nz, int nh_inf, int K, int o, int hmax,
+                       int nz, int nh_inf, int K, int o, int hmax, int C,
                        cudaStream_t stream) {
   const size_t smem = bwd_smem<R>(ny, nz, hmax);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_rollout_bwd_carry_kernel<R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = prepare_cluster_kernel(carry_kernel_for<R>(C), smem, C);
   if (err != cudaSuccess) return err;
-  train_rollout_bwd_carry_kernel<R>
-      <<<(B + R - 1) / R, kThreads, smem, stream>>>(
-          params, meta, n_pz, n_dyn, eps, qpar, stash_p, stash_d, cot_ys,
-          cot_res, cot_qpar, cot_ppar, cot_zs, g_q, g_pz, g_dyn, g_y0, g_hxz,
-          B, ny, nz, nh_inf, K, o, 1.0f / (float)o, hmax);
-  return cudaGetLastError();
+  return launch_cluster(carry_kernel_for<R>(C), (B + R - 1) / R * C,
+                        C, smem, stream, params, meta, n_pz, n_dyn, eps, qpar,
+                        stash_p, stash_d, cot_ys, cot_res, cot_qpar, cot_ppar,
+                        cot_zs, g_q, g_pz, g_dyn, g_y0, g_hxz, B, ny, nz,
+                        nh_inf, K, o, 1.0f / (float)o, hmax);
+}
+
+template <int R>
+cudaError_t bwd_clusters(int ny, int nz, int hmax, int C, int* n) {
+  return max_active_clusters(carry_kernel_for<R>(C), C,
+                             bwd_smem<R>(ny, nz, hmax), n);
 }
 
 }  // namespace
@@ -497,11 +601,12 @@ cudaError_t launch_bwd(const float* params, const int* meta, int n_pz,
 // jobs), contiguous and on the device. The launches run on `stream`.
 //
 // Forward. params: every layer's W^T (in, out) and bias, q first, then p_z,
-// then dynamics; meta: int32 {din, dout, w_off, b_off} per layer in that
-// order. y0 (B, ny), hxz (K, B, nh_inf), eps (K, B, nz); outputs ys, res
-// (K, B, ny), qpar, ppar (K, B, 2 nz), zs (K, B, nz), stash_p / stash_d
-// (K, B, sum of the hidden widths). rows_per_block is 4, 8 or 16; hmax is the
-// widest layer output. Returns the launch's cudaError_t (0 on success).
+// then dynamics; meta: int32 {din, dout, w_off, b_off, 0, dout} per layer
+// in that order (kernels/rollout.py `pack_layout` for one rank). y0 (B, ny),
+// hxz (K, B, nh_inf), eps (K, B, nz); outputs ys, res (K, B, ny), qpar,
+// ppar (K, B, 2 nz), zs (K, B, nz), stash_p / stash_d (K, B, sum of the
+// hidden widths). rows_per_block is 4, 8 or 16; hmax is the widest layer
+// output. Returns the launch's cudaError_t (0 on success).
 extern "C" int srvp_train_rollout_fwd(
     const void* params, const void* meta, int n_pz, int n_dyn,
     const void* y0, const void* hxz, const void* eps, void* ys, void* res,
@@ -524,19 +629,21 @@ extern "C" int srvp_train_rollout_fwd(
 #undef LAUNCH_FWD
 }
 
-// Backward carry pass. params: the same layers with W in (out, in) layout
-// and no bias; meta: {dout, din, w_off, -1} per layer. Inputs: the forward's
-// eps, qpar and stashes, and the cotangents of its five outputs. Outputs:
-// g_q (K, B, 2 nz), g_pz / g_dyn (K, B, sum of the layer widths): every
-// layer's output cotangent; g_y0 (B, ny); g_hxz (K, B, nh_inf). hmax is the
-// widest layer input or output.
+// Backward carry pass. params: every rank's slice of the same layers with
+// W in (out, in) layout and no bias, packed by kernels/rollout.py; meta:
+// {din, width, w_off, -1, c0, dout} per (layer, rank) of the products g W.
+// Inputs: the forward's eps, qpar and stashes, and the cotangents of its
+// five outputs. Outputs: g_q (K, B, 2 nz), g_pz / g_dyn (K, B, sum of the
+// layer widths): every layer's output cotangent; g_y0 (B, ny); g_hxz (K, B,
+// nh_inf). hmax is the widest layer input or output; rows (R) is 4, 8, 12
+// or 16; C (blocks a cluster) 1, 2, 4, 8 or 16.
 extern "C" int srvp_train_rollout_bwd(
     const void* params, const void* meta, int n_pz, int n_dyn,
     const void* eps, const void* qpar, const void* stash_p,
     const void* stash_d, const void* cot_ys, const void* cot_res,
     const void* cot_qpar, const void* cot_ppar, const void* cot_zs,
     void* g_q, void* g_pz, void* g_dyn, void* g_y0, void* g_hxz, int B,
-    int ny, int nz, int nh_inf, int K, int o, int hmax, int rows_per_block,
+    int ny, int nz, int nh_inf, int K, int o, int hmax, int rows, int C,
     void* stream) {
   const float* p = CF(params);
   const int* m = static_cast<const int*>(meta);
@@ -545,14 +652,29 @@ extern "C" int srvp_train_rollout_bwd(
   launch_bwd<R>(p, m, n_pz, n_dyn, CF(eps), CF(qpar), CF(stash_p),            \
                 CF(stash_d), CF(cot_ys), CF(cot_res), CF(cot_qpar),           \
                 CF(cot_ppar), CF(cot_zs), F(g_q), F(g_pz), F(g_dyn), F(g_y0), \
-                F(g_hxz), B, ny, nz, nh_inf, K, o, hmax, s)
-  switch (rows_per_block) {
+                F(g_hxz), B, ny, nz, nh_inf, K, o, hmax, C, s)
+  switch (rows) {
     case 4: return LAUNCH_BWD(4);
     case 8: return LAUNCH_BWD(8);
+    case 12: return LAUNCH_BWD(12);
     case 16: return LAUNCH_BWD(16);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH_BWD
+}
+
+// Clusters of the carry pass (C blocks of `rows` rows, shared memory for
+// ny, nz and hmax) that the card holds at once, in *n; 0 if they cannot be
+// scheduled. Returns a cudaError_t.
+extern "C" int srvp_train_rollout_bwd_clusters(int ny, int nz, int hmax,
+                                               int rows, int C, int* n) {
+  switch (rows) {
+    case 4: return bwd_clusters<4>(ny, nz, hmax, C, n);
+    case 8: return bwd_clusters<8>(ny, nz, hmax, C, n);
+    case 12: return bwd_clusters<12>(ny, nz, hmax, C, n);
+    case 16: return bwd_clusters<16>(ny, nz, hmax, C, n);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Backward weight-gradient pass: n_jobs rows of jobs (see the kernel),

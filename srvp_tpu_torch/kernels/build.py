@@ -95,14 +95,19 @@ def load_library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.srvp_prior_rollout.argtypes = [p, p, i, i, p, p, p, i, i, i, i, i,
-                                           i, i, p]
+        lib.srvp_prior_rollout.argtypes = [p, p, i, i, p, p, p] + [i] * 8 \
+            + [p]
         lib.srvp_prior_rollout.restype = i
+        # (ny, nz, hmax, rows, C, int* clusters)
+        for name in ("srvp_prior_rollout_clusters",
+                     "srvp_train_rollout_bwd_clusters"):
+            getattr(lib, name).argtypes = [i] * 5 + [p]
+            getattr(lib, name).restype = i
         lib.srvp_train_rollout_fwd.argtypes = [p, p, i, i] + [p] * 10 \
             + [i] * 8 + [p]
         lib.srvp_train_rollout_fwd.restype = i
         lib.srvp_train_rollout_bwd.argtypes = [p, p, i, i] + [p] * 14 \
-            + [i] * 8 + [p]
+            + [i] * 9 + [p]
         lib.srvp_train_rollout_bwd.restype = i
         lib.srvp_train_rollout_wgrad.argtypes = [p, i, i] + [p] * 8 + [i, p]
         lib.srvp_train_rollout_wgrad.restype = i

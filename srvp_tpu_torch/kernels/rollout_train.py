@@ -12,31 +12,39 @@ the other o - 1:
     p_k = p_z(y_k);   r_k = dt * dynamics([y_k, z_k]);   y_{k+1} = y_k + r_k
 
 and the outputs are ys (y_1..y_K), res (r_k), q, p and z per substep. The
-kernels (csrc/rollout_train.cu) are one forward launch and two backward
-launches (a reverse-time carry pass, then a weight-gradient pass that owns
-each tile of each dW: deterministic, no atomics). At the flagship widths a
-row does 1,120,256 multiply-adds per substep, so B=128, K=14 is 4.0 GFLOP
-forward and about twice that backward: arithmetic-bound on the H100's fp32
-cores. eps is noise: it gets no gradient.
+kernels (csrc/rollout_train.cu) are one forward launch (one block a tile of
+rows, `_rows`) and two backward launches: a reverse-time carry pass on the
+prior rollout's cluster design (kernels/rollout.py `cluster_plan`: a
+thread-block cluster splits each layer's columns across its SMs), then a
+weight-gradient pass that owns each tile of each dW (deterministic, no
+atomics). At the flagship widths a row does 1,120,256 multiply-adds per
+substep, so B=128, K=14 is 4.0 GFLOP forward and about twice that backward:
+arithmetic-bound on the H100's fp32 cores. eps is noise: it gets no
+gradient.
 
 `train_rollout` runs `TrainRollout` (the kernels) for CUDA tensors and
 `train_rollout_reference` for CPU tensors; it raises for anything else.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from srvp_tpu_torch.kernels.rollout import _check, _mlp, _pack, rows_per_block
+from srvp_tpu_torch.kernels.rollout import (N_SMS, SMEM_LIMIT, THREADS,
+                                            _check, _lib, _mlp,
+                                            check_schedulable, cluster_plan,
+                                            max_clusters, pack)
 from srvp_tpu_torch.ops.dists import rsample
 
 # Launches of the forward kernel, and of the two backward passes (two per
 # backward). Reset them before a run to count that run's launches.
 fwd_launches = 0
 bwd_launches = 0
-
-# widest tile whose shared memory fits a block (227 KB on the H100)
-_SMEM_LIMIT = 232448
-_THREADS = 512
+# Set to a list to time the backward's parts: each backward then appends a
+# dict of CUDA events recorded on its stream, "start", "carry" and "wgrad"
+# (each a (before, after) pair around the launch) and "end".
+bwd_events = None
 
 
 def train_rollout_reference(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
@@ -65,24 +73,41 @@ def train_rollout_reference(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
 
 
 def _rows(bsz, ny, nz, nh_inf, hmax):
-    """Rows per block: rollout.py's rule, cut until the forward's and the
-    carry pass's shared memory fit."""
+    """The forward's rows per block (one block a tile): the fewest of 4, 8
+    and 16 that fit the grid in one wave over the SMs, halved until a tile
+    of the larger of the forward's and the carry pass's buffers fits."""
     floats = ny + nz + max(nh_inf, 2 * ny + nz) + 2 * nz + 2 * hmax \
-        + 4 * _THREADS
-    rows = rows_per_block(bsz)
-    while rows > 4 and 4 * rows * floats > _SMEM_LIMIT:
+        + 4 * THREADS
+    rows = next((r for r in (4, 8, 16) if -(-bsz // r) <= N_SMS), 16)
+    while rows > 4 and 4 * rows * floats > SMEM_LIMIT:
         rows //= 2
     return rows
+
+
+def bwd_smem_bytes(rows, ny, nz, hmax):
+    """Shared memory of the carry pass at `rows` rows a tile: the carried
+    dL/dy and z gradient, the MLPs' input cotangents, q's cotangent, two
+    buffers of the widest layer, the partial sums."""
+    return 4 * rows * (3 * ny + 4 * nz + 2 * hmax + 4 * THREADS)
+
+
+def bwd_plan(bsz, ny, nz, hmax, device):
+    """The carry pass's launch plan on `device` (rollout.cluster_plan, with
+    the clusters the card holds at once)."""
+    query = _lib().srvp_train_rollout_bwd_clusters
+    return cluster_plan(
+        bsz, lambda r: bwd_smem_bytes(r, ny, nz, hmax),
+        lambda r, c: max_clusters(query, (ny, nz, hmax), r, c, device))
+
+
+def bwd_hmax(layers):
+    """The carry pass's widest layer input or output."""
+    return max(max(w.shape) for w, _ in layers)
 
 
 def _layers(flat, n_pz):
     pairs = [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
     return pairs[0], pairs[1:1 + n_pz], pairs[1 + n_pz:]
-
-
-def _lib():
-    from srvp_tpu_torch.kernels.build import load_library
-    return load_library()
 
 
 def _stream(device):
@@ -92,22 +117,21 @@ def _stream(device):
 class TrainRollout(torch.autograd.Function):
     """The rollout through the CUDA kernels, with their backward.
 
-    apply(oversampling, n_pz, y0, hxz, eps, q_w, q_b, *pz (w, b),
-    *dyn (w, b)) -> (ys, res, q_par, p_par, zs), as train_rollout_reference.
-    Weight gradients come back in nn.Linear's (out, in) layout.
+    apply(oversampling, n_pz, plan, y0, hxz, eps, q_w, q_b, *pz (w, b),
+    *dyn (w, b)) -> (ys, res, q_par, p_par, zs), as train_rollout_reference;
+    plan: the carry pass's (None: bwd_plan's). Weight gradients come back in
+    nn.Linear's (out, in) layout.
     """
 
     @staticmethod
-    def forward(ctx, oversampling, n_pz, y0, hxz, eps, *flat):
+    def forward(ctx, oversampling, n_pz, plan, y0, hxz, eps, *flat):
         global fwd_launches
         q_layer, pz, dyn = _layers(flat, n_pz)
         layers = [q_layer] + pz + dyn
         n_steps, bsz, nh_inf = hxz.shape
         ny, nz = y0.shape[1], eps.shape[2]
         device = y0.device
-        params, meta = _pack([(w.detach().t(), b.detach())
-                              for w, b in layers])
-        meta_t = torch.tensor(meta, dtype=torch.int32, device=device)
+        params, meta_t = pack(layers, 1, True, True)
         hmax = max(w.shape[0] for w, _ in layers)
         sw_p = sum(w.shape[0] for w, _ in pz[:-1])
         sw_d = sum(w.shape[0] for w, _ in dyn[:-1])
@@ -130,7 +154,7 @@ class TrainRollout(torch.autograd.Function):
             raise RuntimeError(
                 f"srvp_train_rollout_fwd launch failed: cudaError {err}")
         fwd_launches += 1
-        ctx.oversampling, ctx.n_pz, ctx.rows = oversampling, n_pz, rows
+        ctx.oversampling, ctx.n_pz, ctx.plan = oversampling, n_pz, plan
         ctx.save_for_backward(y0, hxz, eps, ys, q_par, zs, stash_p, stash_d,
                               *flat)
         return ys, res, q_par, p_par, zs
@@ -145,25 +169,40 @@ class TrainRollout(torch.autograd.Function):
         n_steps, bsz, nh_inf = hxz.shape
         ny, nz = y0.shape[1], eps.shape[2]
         device = y0.device
+        stream = torch.cuda.current_stream(device)
+        events = {} if bwd_events is not None else None
+
+        def mark(name):
+            if events is not None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(stream)
+                events.setdefault(name, []).append(ev)
+
+        mark("start")
         cots = [c.contiguous() for c in (g_ys, g_res, g_q, g_p, g_zs)]
+        lib = _lib()
+        hmax = bwd_hmax(layers)
+        plan = ctx.plan or bwd_plan(bsz, ny, nz, hmax, device)
+        check_schedulable(lib.srvp_train_rollout_bwd_clusters, (ny, nz, hmax),
+                          plan, device)
         # the carry pass reads W (out, in) as the (in', out') matrix of g W^T
-        params, meta = _pack([(w.detach(), None) for w, _ in layers])
-        meta_t = torch.tensor(meta, dtype=torch.int32, device=device)
-        hmax = max(max(w.shape) for w, _ in layers)
+        params, meta_t = pack(layers, plan.cluster, False, False)
         new = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
         g_qbuf = new(n_steps, bsz, 2 * nz)
         g_pz = new(n_steps, bsz, sum(w.shape[0] for w, _ in pz))
         g_dyn = new(n_steps, bsz, sum(w.shape[0] for w, _ in dyn))
         g_y0, g_hxz = new(bsz, ny), new(n_steps, bsz, nh_inf)
-        lib = _lib()
         with torch.cuda.device(device):
+            mark("carry")
             err = lib.srvp_train_rollout_bwd(
                 params.data_ptr(), meta_t.data_ptr(), len(pz), len(dyn),
                 eps.data_ptr(), q_par.data_ptr(), stash_p.data_ptr(),
                 stash_d.data_ptr(), *[c.data_ptr() for c in cots],
                 g_qbuf.data_ptr(), g_pz.data_ptr(), g_dyn.data_ptr(),
                 g_y0.data_ptr(), g_hxz.data_ptr(), bsz, ny, nz, nh_inf,
-                n_steps, ctx.oversampling, hmax, ctx.rows, _stream(device))
+                n_steps, ctx.oversampling, hmax, plan.rows, plan.cluster,
+                stream.cuda_stream)
+            mark("carry")
             if err != 0:
                 raise RuntimeError(
                     f"srvp_train_rollout_bwd launch failed: cudaError {err}")
@@ -175,35 +214,53 @@ class TrainRollout(torch.autograd.Function):
             yz_in = torch.cat([y_in, zs], dim=-1).contiguous()
             a_src = [hxz, yz_in, stash_p, stash_d]
             g_src = [g_qbuf, g_pz, g_dyn]
-            jobs, grads, views, n_tiles = _wgrad_jobs(q_layer, pz, dyn, ny,
-                                                      nz, nh_inf, device)
+            jobs, sizes, n_grads, n_tiles = _wgrad_table(
+                _shapes(layers), len(pz), ny, nz, nh_inf, device)
+            grads = torch.empty(n_grads, device=device)
+            mark("wgrad")
             err = lib.srvp_train_rollout_wgrad(
                 jobs.data_ptr(), jobs.shape[0], n_tiles,
                 *[a.data_ptr() for a in a_src],
                 *[g.data_ptr() for g in g_src], grads.data_ptr(),
-                n_steps * bsz, _stream(device))
+                n_steps * bsz, stream.cuda_stream)
+            mark("wgrad")
         if err != 0:
             raise RuntimeError(
                 f"srvp_train_rollout_wgrad launch failed: cudaError {err}")
         bwd_launches += 1
-        return (None, None, g_y0, g_hxz, None, *views)
+        views = []
+        for w_off, dout, din, b_off in sizes:
+            views += [grads[w_off:w_off + dout * din].view(dout, din),
+                      grads[b_off:b_off + dout]]
+        mark("end")
+        if events is not None:
+            bwd_events.append(events)
+        return (None, None, None, g_y0, g_hxz, None, *views)
 
 
 _TILE = 64
 
 
-def _wgrad_jobs(q_layer, pz, dyn, ny, nz, nh_inf, device):
-    """The weight-gradient pass's job table (see csrc/rollout_train.cu),
-    the flat gradient buffer, and its (dW, db) views in `flat` order.
+def _shapes(layers):
+    return tuple(tuple(w.shape) for w, _ in layers)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_table(shapes, n_pz, ny, nz, nh_inf, device):
+    """The weight-gradient pass's job table on `device` (see
+    csrc/rollout_train.cu) for layers of these (out, in) shapes (q, then
+    p_z's n_pz, then the dynamics'), built once per shapes and device; the
+    (w_off, dout, din, b_off) of every layer's dW and db in the flat
+    gradient buffer; that buffer's size; the pass's blocks.
 
     A sources: 0 hxz (nh_inf), 1 [y_k, z_k] (ny + nz), 2 / 3 the p_z /
     dynamics stashes. G sources: 0 q, 1 p_z, 2 dynamics cotangents."""
     rows, sizes, tile0 = [], [], 0
     off = 0
 
-    def add(a_src, a_ld, a_off, relu, g_src, g_ld, g_off, w):
+    def add(a_src, a_ld, a_off, relu, g_src, g_ld, g_off, shape):
         nonlocal tile0, off
-        dout, din = w.shape
+        dout, din = shape
         w_off = off
         b_off = w_off + dout * din
         off = b_off + dout
@@ -212,32 +269,31 @@ def _wgrad_jobs(q_layer, pz, dyn, ny, nz, nh_inf, device):
         sizes.append((w_off, dout, din, b_off))
         tile0 += -(-dout // _TILE) * -(-din // _TILE)
 
-    add(0, nh_inf, 0, 0, 0, 2 * nz, 0, q_layer[0])
-    for g_src, a_src, mlp in ((1, 2, pz), (2, 3, dyn)):
-        s_ld = sum(w.shape[0] for w, _ in mlp[:-1])
-        g_ld = sum(w.shape[0] for w, _ in mlp)
+    add(0, nh_inf, 0, 0, 0, 2 * nz, 0, shapes[0])
+    for g_src, a_src, mlp in ((1, 2, shapes[1:1 + n_pz]),
+                              (2, 3, shapes[1 + n_pz:])):
+        s_ld = sum(shape[0] for shape in mlp[:-1])
+        g_ld = sum(shape[0] for shape in mlp)
         g_off = 0
-        for il, (w, _) in enumerate(mlp):
+        for il, shape in enumerate(mlp):
             if il == 0:
-                add(1, ny + nz, 0, 0, g_src, g_ld, 0, w)
+                add(1, ny + nz, 0, 0, g_src, g_ld, 0, shape)
             else:
-                add(a_src, s_ld, g_off - w.shape[1], 1, g_src, g_ld, g_off, w)
-            g_off += w.shape[0]
-    grads = torch.empty(off, device=device)
-    views = []
-    for w_off, dout, din, b_off in sizes:
-        views += [grads[w_off:w_off + dout * din].view(dout, din),
-                  grads[b_off:b_off + dout]]
+                add(a_src, s_ld, g_off - shape[1], 1, g_src, g_ld, g_off,
+                    shape)
+            g_off += shape[0]
     jobs = torch.tensor(rows, dtype=torch.int32, device=device)
-    return jobs, grads, views, tile0
+    return jobs, tuple(sizes), off, tile0
 
 
 def train_rollout(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
-                  oversampling=1):
+                  oversampling=1, plan=None):
     """Training rollout; same arguments and results as
     train_rollout_reference, differentiable in the weights, y0 and hxz.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels.
+    CPU tensors take the plain version; CUDA tensors launch the kernels,
+    the carry pass with `plan` (a rollout.Plan; by default bwd_plan's). The
+    backward raises if the card cannot schedule the plan's cluster.
     """
     if y0.device.type == "cpu":
         return train_rollout_reference(q_layer, pz_layers, dyn_layers, y0,
@@ -267,5 +323,6 @@ def train_rollout(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
     if n_steps == 0 or bsz == 0:
         raise ValueError("train_rollout: needs at least one substep and row")
     flat = [t for w, b in layers for t in (w, b)]
-    return TrainRollout.apply(oversampling, len(pz_layers), y0.contiguous(),
+    return TrainRollout.apply(oversampling, len(pz_layers), plan,
+                              y0.contiguous(),
                               hxz.contiguous(), eps.contiguous(), *flat)

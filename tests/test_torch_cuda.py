@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: the prior
 rollout, the training rollout's forward and backward (inputs drawn away
 from ReLU kinks by kernels.parity.kink_free_inputs, a float64 run of the
-plain version as the arbiter of elements fp32 cannot resolve), the vgg
+plain version as the arbiter of elements fp32 cannot resolve), each at the
+dcgan and KTH shapes and at cluster plans of 1, 2, 8 and 16 blocks, the
+same bits on a second launch, and a plan the card cannot hold raising; the vgg
 pool and upsample, forward and backward, bit for bit (ties, a NaN, a
 non-contiguous input, a tensor past 2^31 elements), and the conv stage,
 kernels 8 and 9 (sizes that are no tile multiple, every row on an edge,
@@ -15,6 +17,7 @@ Run them on the card with:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import functools
 import shutil
 
 import pytest
@@ -43,14 +46,23 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("bsz,n_steps,o,ny,nz,nh", [
-    (160, 20, 1, 20, 20, 512),    # the main path's chunk
-    (1600, 20, 1, 20, 20, 512),   # a whole batch (16-row tiles)
-    (600, 6, 2, 20, 12, 64),      # 8-row tiles, ny != nz
-    (37, 10, 2, 6, 4, 24),        # ragged tile, narrow layers
-    (5, 9, 3, 7, 5, 30),          # widths that are not multiples of 4
+P = krollout.Plan
+
+
+@pytest.mark.parametrize("bsz,n_steps,o,ny,nz,nh,plan", [
+    (160, 20, 1, 20, 20, 512, None),   # the main path's chunk (C = 8)
+    (1600, 20, 1, 20, 20, 512, None),  # a whole batch (C = 1, 16-row tiles)
+    (160, 60, 2, 50, 50, 512, None),   # the KTH evaluation chunk
+    (600, 6, 2, 20, 12, 64, None),     # ny != nz
+    (37, 10, 2, 6, 4, 24, None),       # ragged tile, narrow layers
+    (5, 9, 3, 7, 5, 30, None),         # widths that are not multiples of 4
+    (160, 20, 1, 20, 20, 512, P(16, 1, 10)),
+    (160, 20, 1, 20, 20, 512, P(16, 2, 10)),
+    (128, 20, 1, 20, 20, 512, P(16, 16, 8)),
+    (37, 9, 3, 7, 5, 30, P(8, 8, 5)),   # ragged last tile, C > 1
+    (37, 9, 3, 7, 5, 30, P(12, 16, 4)),  # ranks with no columns
 ])
-def test_kernel_matches_plain(cuda, bsz, n_steps, o, ny, nz, nh):
+def test_kernel_matches_plain(cuda, bsz, n_steps, o, ny, nz, nh, plan):
     torch.manual_seed(0)
     pz = MLP(ny, nh, 2 * nz, 4).to(cuda).linears()
     dyn = MLP(ny + nz, nh, ny, 4).to(cuda).linears()
@@ -58,11 +70,30 @@ def test_kernel_matches_plain(cuda, bsz, n_steps, o, ny, nz, nh):
     eps = torch.randn(n_steps, bsz, nz, device=cuda)
     before = krollout.launches
     with torch.no_grad():
-        out = krollout.prior_rollout(pz, dyn, y0, eps, ny, nz, o)
+        out = krollout.prior_rollout(pz, dyn, y0, eps, ny, nz, o, plan=plan)
+        again = krollout.prior_rollout(pz, dyn, y0, eps, ny, nz, o,
+                                       plan=plan)
         ref = krollout.prior_rollout_reference(pz, dyn, y0, eps, ny, nz, o)
     torch.cuda.synchronize()
-    assert krollout.launches == before + 1
+    assert krollout.launches == before + 2
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    assert _bits_equal(out, again)
+
+
+def test_unschedulable_plan_raises(cuda):
+    """A cluster the card cannot hold (32 blocks, past Hopper's 16; 16
+    blocks of more shared memory than a block may have) raises before any
+    launch; the plan is never quietly replaced."""
+    torch.manual_seed(0)
+    y0 = torch.randn(8, 4, device=cuda)
+    eps = torch.randn(3, 8, 3, device=cuda)
+    for nh, plan in ((8, P(4, 32, 2)), (2048, P(16, 16, 1))):
+        pz = MLP(4, nh, 6, 2).to(cuda).linears()
+        dyn = MLP(7, nh, 4, 2).to(cuda).linears()
+        before = krollout.launches
+        with pytest.raises(RuntimeError):
+            krollout.prior_rollout(pz, dyn, y0, eps, 4, 3, 1, plan=plan)
+        assert krollout.launches == before
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -86,21 +117,29 @@ def _train_layers(cuda, nh_inf, nh, ny, nz):
             MLP(ny + nz, nh, ny, 4).to(cuda).linears())
 
 
-@pytest.mark.parametrize("bsz,n_steps,o,ny,nz,nh_inf,nh", [
-    (128, 14, 1, 20, 20, 256, 512),   # the training step
-    (37, 10, 2, 20, 12, 24, 64),      # reused z, ny != nz
-    (130, 6, 3, 7, 5, 30, 30),        # ragged tile, widths not multiples of 4
+@pytest.mark.parametrize("bsz,n_steps,o,ny,nz,nh_inf,nh,plan", [
+    (128, 14, 1, 20, 20, 256, 512, None),   # the training step (C = 16)
+    (100, 38, 2, 50, 50, 256, 512, None),   # the KTH training step
+    (37, 10, 2, 20, 12, 24, 64, None),      # reused z, ny != nz
+    (130, 6, 3, 7, 5, 30, 30, None),        # widths not multiples of 4
+    (128, 14, 1, 20, 20, 256, 512, P(16, 1, 8)),
+    (128, 14, 1, 20, 20, 256, 512, P(16, 2, 8)),
+    (128, 14, 1, 20, 20, 256, 512, P(16, 8, 8)),
+    (130, 6, 3, 7, 5, 30, 30, P(12, 16, 11)),  # ragged tile, empty ranks
+    (37, 10, 2, 20, 12, 24, 64, P(8, 8, 5)),   # ragged last tile, C > 1
 ])
 def test_train_kernels_match_plain(cuda, bsz, n_steps, o, ny, nz, nh_inf,
-                                   nh):
+                                   nh, plan):
     torch.manual_seed(0)
     q, pz, dyn = _train_layers(cuda, nh_inf, nh, ny, nz)
     gen = torch.Generator(device=cuda).manual_seed(1)
+    margin = chip_smoke.KTH_KINK_MARGIN if ny == 50 else parity.KINK_MARGIN
     y0, hxz, eps, _ = parity.kink_free_inputs(q, pz, dyn, bsz, n_steps, o,
-                                              gen)
+                                              gen, margin)
     flat = [t.detach() for w, b in [q, *pz, *dyn] for t in (w, b)]
+    kernel = functools.partial(krt.train_rollout, plan=plan)
     runs = []
-    for fn, dtype in ((krt.train_rollout, torch.float32),
+    for fn, dtype in ((kernel, torch.float32), (kernel, torch.float32),
                       (krt.train_rollout_reference, torch.float32),
                       (krt.train_rollout_reference, torch.float64)):
         leaves = [t.to(dtype, copy=True).requires_grad_()
@@ -111,14 +150,17 @@ def test_train_kernels_match_plain(cuda, bsz, n_steps, o, ny, nz, nh_inf,
                   eps.to(dtype), o)
         grads = torch.autograd.grad(parity.rollout_loss(outs), leaves)
         runs.append((outs, grads))
-        if fn is krt.train_rollout:
+        if fn is kernel:
             assert (krt.fwd_launches, krt.bwd_launches) == (
                 before[0] + 1, before[1] + 2)
     torch.cuda.synchronize()
+    # a second launch gives the same bits
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert _bits_equal(a, b)
     # each element within the tolerance of the fp32 plain result, or no
     # farther from the float64 one than that is (parity.agreement)
     for part, rtol, atol in ((0, 2e-5, 1e-6), (1, 5e-4, 5e-6)):
-        for i, (a, b, c) in enumerate(zip(*(r[part] for r in runs))):
+        for i, (a, b, c) in enumerate(zip(*(r[part] for r in runs[1:]))):
             assert torch.isfinite(a).all()
             worst = parity.agreement(a, b, c, rtol, atol)[1]
             assert worst <= 1.0, (part, i, worst)

@@ -1,0 +1,474 @@
+"""The cluster design of the latent-rollout kernels 1 and 3 (carry pass),
+checked on the CPU.
+
+The kernels (csrc/rollout.cu, csrc/rollout_train.cu) split every layer's
+output columns across the C blocks of a thread-block cluster: each rank
+reads its own packed slice of the weights and writes its output slice into
+every rank's activation buffer. Here the launch plan (`cluster_plan`), the
+column slices and the packed layout are checked directly, and the
+column-split schedule is emulated in numpy, rank by rank, reading the
+weights from the wrapper's packed buffer through its meta rows. The
+emulated prior rollout is held at rtol 1e-4 / atol 1e-5 (tests/
+test_pallas.py) against `prior_rollout_reference` and JAX's
+`prior_rollout_fused(..., interpret=True)`; the emulated carry pass, with
+the weight gradients summed from the G buffers it writes by the wrapper's
+job table, at rtol 5e-4 / atol 5e-6 (tests/test_pallas_train.py) against
+autograd of `train_rollout_reference` and JAX's `make_train_rollout(...,
+interpret=True)`, on the same weights and noise. Widths are tiny and not
+multiples of 4 C (30, 6, 2 nz = 8), so ranks get narrow, ragged or empty
+slices."""
+
+import contextlib
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from srvp_tpu.ops.pallas.rollout import prior_rollout_fused
+from srvp_tpu.ops.pallas.rollout_train import make_train_rollout
+from srvp_tpu_torch.kernels import rollout as kr
+from srvp_tpu_torch.kernels import rollout_train as krt
+from tests.torch_port_util import ROLLOUT_ATOL, ROLLOUT_RTOL
+
+GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-6
+NY, NZ, NH, NH_INF, NLAYERS = 6, 4, 30, 10, 3
+BSZ, O, NT = 7, 2, 3
+N_STEPS = O * (NT - 1)
+RANKS = [1, 2, 8, 16]
+
+
+# -- the launch plan -------------------------------------------------------
+
+# H100 80GB HBM3: clusters the card holds at once, by C, for both kernels
+# at the flagship widths (cudaOccupancyMaxActiveClusters; PERF.md)
+H100_CLUSTERS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+
+def _smem(rows):
+    return kr.smem_bytes(rows, 20, 20, 512)
+
+
+def _bwd_smem(rows):
+    return krt.bwd_smem_bytes(rows, 50, 50, 512)
+
+
+@pytest.mark.parametrize("bsz", [5, 37, 100, 128, 160, 1600])
+@pytest.mark.parametrize("resident", [None, H100_CLUSTERS])
+def test_plan_fits_one_wave(bsz, resident):
+    cap = (lambda r, c: kr.N_SMS // c) if resident is None \
+        else (lambda r, c: resident[c])
+    cost = lambda r, c: r + kr.WEIGHT_ROWS / c  # noqa: E731
+    for smem in (_smem, _bwd_smem):
+        plan = kr.cluster_plan(bsz, smem, cap)
+        assert plan.rows in kr.ROWS and plan.cluster in kr.CLUSTERS
+        assert plan.tiles == -(-bsz // plan.rows)
+        assert plan.tiles <= cap(plan.rows, plan.cluster)
+        assert plan.tiles * plan.cluster <= kr.N_SMS
+        assert smem(plan.rows) <= kr.SMEM_LIMIT
+        # no plan that fits one wave costs less
+        for c in kr.CLUSTERS:
+            for r in kr.ROWS:
+                if -(-bsz // r) <= cap(r, c) \
+                        and -(-bsz // r) * c <= kr.N_SMS:
+                    assert cost(r, c) >= cost(plan.rows, plan.cluster)
+
+
+def test_plan_examples():
+    h100 = lambda r, c: H100_CLUSTERS[c]  # noqa: E731
+    for resident in (None, h100):
+        assert kr.cluster_plan(160, _smem, resident) == kr.Plan(12, 8, 14)
+        assert kr.cluster_plan(100, _bwd_smem, resident) == kr.Plan(8, 8, 13)
+        assert kr.cluster_plan(1600, _smem, resident) == kr.Plan(16, 1, 100)
+        # beyond one wave even at C = 1: the largest R, several waves
+        assert kr.cluster_plan(4000, _smem, resident) == kr.Plan(16, 1, 250)
+    # the card's own cluster occupancy bounds the wave: 16 clusters of 8
+    # fit 132 SMs, the H100 holds 15 of those at once (of 8-row tiles, two
+    # blocks an SM, 30: the wave still takes one block an SM)
+    assert kr.cluster_plan(128, _bwd_smem) == kr.Plan(8, 8, 16)
+    assert kr.cluster_plan(128, _bwd_smem, h100) == kr.Plan(12, 8, 11)
+    assert kr.cluster_plan(128, _bwd_smem, lambda r, c: 30) == \
+        kr.Plan(8, 8, 16)
+    assert kr.cluster_plan(160, _smem, lambda r, c: 30) == kr.Plan(12, 8, 14)
+    # shared memory: two buffers of 4096 hidden units fit 4 rows at most
+    wide = lambda r: kr.smem_bytes(r, 20, 20, 4096)  # noqa: E731
+    assert kr.cluster_plan(160, wide).rows == 4
+    with pytest.raises(ValueError, match="shared memory"):
+        kr.cluster_plan(160, lambda r: kr.smem_bytes(r, 20, 20, 16384))
+
+
+def test_unschedulable_plan_raises(monkeypatch):
+    """The wrapper's guard: a plan the card holds no cluster of raises (a
+    stand-in for the library's cudaOccupancyMaxActiveClusters query, and
+    for the card)."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "card")
+
+    def query(ny, nz, hmax, rows, cluster, n):
+        n._obj.value = 0 if cluster == 16 else 3
+        return 0
+    query.__name__ = "fake_clusters"
+    dev = torch.device("cuda", 7)
+    assert kr.check_schedulable(query, (1, 2, 3), kr.Plan(4, 8, 1), dev) == 3
+    assert kr.max_clusters(query, (1, 2, 3), 4, 8, dev) == 3
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        kr.check_schedulable(query, (1, 2, 3), kr.Plan(4, 16, 1), dev)
+
+
+# -- column slices and the packed layout -------------------------------------
+
+@pytest.mark.parametrize("dout", [2 * NZ, NY, NH, 40, 512, 1])
+@pytest.mark.parametrize("n_ranks", RANKS)
+def test_slices_cover_each_column_once(dout, n_ranks):
+    slices = kr.column_slices(dout, n_ranks)
+    assert len(slices) == n_ranks
+    cols = np.concatenate([c0 + np.arange(w) for c0, w in slices])
+    np.testing.assert_array_equal(cols, np.arange(dout))
+    # every slice but the last non-empty one is whole groups of 4
+    widths = [w for _, w in slices if w]
+    assert all(w % 4 == 0 for w in widths[:-1])
+    assert max(widths) - min(widths) <= 4 + (-dout % 4)
+
+
+@pytest.mark.parametrize("transposed,with_bias", [(True, True),
+                                                  (False, False)])
+@pytest.mark.parametrize("n_ranks", RANKS)
+def test_packed_slices_hold_the_weights(transposed, with_bias, n_ranks):
+    gen = torch.Generator().manual_seed(0)
+    dims = [(NY, NH), (NH, NH), (NH, 2 * NZ), (NH_INF, 2 * NZ)]
+    layers = [(torch.randn(o, i, generator=gen), torch.randn(o, generator=gen))
+              for i, o in dims]
+    params, meta = kr.pack(layers, n_ranks, transposed, with_bias)
+    params, meta = params.numpy(), meta.numpy()
+    assert meta.shape == (len(layers) * n_ranks, 6)
+    for il, (w, b) in enumerate(layers):
+        mat = (w.t() if transposed else w).numpy()     # (din, dout)
+        for c, (din, width, w_off, b_off, c0, dout) in enumerate(
+                meta[il * n_ranks:(il + 1) * n_ranks]):
+            assert (din, dout) == mat.shape
+            assert (c0, width) == kr.column_slices(dout, n_ranks)[c]
+            assert w_off % 4 == 0                       # 16-byte aligned
+            np.testing.assert_array_equal(
+                params[w_off:w_off + din * width].reshape(din, width),
+                mat[:, c0:c0 + width])
+            if with_bias:
+                assert b_off % 4 == 0
+                np.testing.assert_array_equal(
+                    params[b_off:b_off + width], b.numpy()[c0:c0 + width])
+            else:
+                assert b_off == -1
+
+
+# -- the column-split schedule, emulated rank by rank -------------------------
+
+def _slice(params, m):
+    din, width, w_off, b_off, c0, _ = (int(v) for v in m)
+    w = params[w_off:w_off + din * width].reshape(din, width)
+    b = params[b_off:b_off + width] if b_off >= 0 else 0.0
+    return w, b, c0, width
+
+
+def _cluster_dense(params, meta, h, dst, epi=None):
+    """One layer: each rank (meta rows in rank order) computes its columns
+    from its packed slice and its own copy of the input h[c] ((R, din)),
+    and writes them into dst[q] of every rank q; epi(c0, cols, v) may
+    transform them first. Checks that every column was written once."""
+    n = len(meta)
+    for q in range(n):
+        dst[q][:] = np.nan
+    for c in range(n):
+        w, b, c0, width = _slice(params, meta[c])
+        if width == 0:
+            continue
+        v = (h[c] @ w + b).astype(np.float32)
+        if epi is not None:
+            v = epi(c0, np.arange(c0, c0 + width), v)
+        for q in range(n):
+            assert np.all(np.isnan(dst[q][:, c0:c0 + width]))
+            dst[q][:, c0:c0 + width] = v
+    assert not any(np.isnan(d).any() for d in dst)
+
+
+def emulate_prior(pz, dyn, y0, eps, n_ranks, rows):
+    """csrc/rollout.cu's schedule on tiles of `rows` rows."""
+    layers = pz + dyn
+    params, meta = kr.pack(layers, n_ranks, True, True)
+    params, meta = params.numpy(), meta.numpy()
+    n_pz = len(pz)
+    bsz = y0.shape[0]
+    out = np.zeros((eps.shape[0], bsz, NY), np.float32)
+    for row0 in range(0, bsz, rows):
+        sl = slice(row0, min(bsz, row0 + rows))
+        n = sl.stop - sl.start
+
+        def pad(a):
+            return np.concatenate([a, np.zeros((rows - n,) + a.shape[1:],
+                                               np.float32)])
+        yz = [np.concatenate([pad(y0[sl]), np.zeros((rows, NZ), np.float32)],
+                             1) for _ in range(n_ranks)]
+
+        def mlp(first, n_layers, h):
+            for il in range(n_layers):
+                ms = meta[(first + il) * n_ranks:(first + il + 1) * n_ranks]
+                dout = int(ms[0][5])
+                dst = [np.empty((rows, dout), np.float32)
+                       for _ in range(n_ranks)]
+                relu = il < n_layers - 1
+                _cluster_dense(params, ms, h, dst,
+                               (lambda c0, j, v: np.maximum(v, 0)) if relu
+                               else None)
+                h = dst
+            return h
+
+        for t in range(eps.shape[0]):
+            if t % O == 0:
+                p = mlp(0, n_pz, [a[:, :NY] for a in yz])
+                e = pad(eps[t][sl])
+                for c in range(n_ranks):
+                    sp = np.logaddexp(0, p[c][:, NZ:]).astype(np.float32)
+                    yz[c][:, NY:] = p[c][:, :NZ] + e * (sp + np.float32(1e-8))
+            res = mlp(n_pz, len(dyn), yz)
+            for c in range(n_ranks):
+                yz[c][:, :NY] += np.float32(1.0 / O) * res[c]
+            for c in range(1, n_ranks):     # every rank holds the same tile
+                np.testing.assert_array_equal(yz[c], yz[0])
+            out[t, sl] = yz[0][:n, :NY]
+    return out
+
+
+def emulate_train_backward(q, pz, dyn, y0, hxz, eps, cots, n_ranks, rows):
+    """csrc/rollout_train.cu's carry pass on tiles of `rows` rows (the
+    forward and its stashes in numpy, as kernel 2 computes them), then the
+    weight-gradient pass by the wrapper's job table. Returns the gradients
+    of y0, hxz and every weight and bias, in flat (w, b) order."""
+    layers = [q] + pz + dyn
+    n_pz, n_dyn = len(pz), len(dyn)
+    npl = [(w.numpy(), b.numpy()) for w, b in layers]
+    k_steps, bsz = hxz.shape[:2]
+    dt = np.float32(1.0 / O)
+    # forward, with the hidden pre-activations stashed per substep
+    y, z = y0.copy(), None
+    ys, zs, qs, st_p, st_d = [], [], [], [], []
+    for k in range(k_steps):
+        qk = hxz[k] @ npl[0][0].T + npl[0][1]
+        if k % O == 0:
+            z = qk[:, :NZ] + eps[k] * (np.logaddexp(0, qk[:, NZ:]) + 1e-8)
+        stash = []
+        for first, n, h in ((1, n_pz, y), (1 + n_pz, n_dyn,
+                                           np.concatenate([y, z], 1))):
+            part = []
+            for il in range(n):
+                w, b = npl[first + il]
+                h = h @ w.T + b
+                if il < n - 1:
+                    part.append(h)
+                    h = np.maximum(h, 0)
+            stash.append(np.concatenate(part, 1))
+        y = y + dt * h
+        ys.append(y), zs.append(z), qs.append(qk)
+        st_p.append(stash[0]), st_d.append(stash[1])
+    ys, zs, qs = (np.stack(a).astype(np.float32) for a in (ys, zs, qs))
+    st_p, st_d = np.stack(st_p), np.stack(st_d)
+    c_ys, c_res, c_q, c_p, c_zs = cots
+
+    params, meta = kr.pack(layers, n_ranks, False, False)
+    params, meta = params.numpy(), meta.numpy()
+    rows_of = lambda first: meta[first * n_ranks:(first + 1) * n_ranks]  # noqa
+    gw_p = sum(w.shape[0] for w, _ in pz)
+    gw_d = sum(w.shape[0] for w, _ in dyn)
+    g_q = np.zeros((k_steps, bsz, 2 * NZ), np.float32)
+    g_pz = np.full((k_steps, bsz, gw_p), np.nan, np.float32)
+    g_dyn = np.full((k_steps, bsz, gw_d), np.nan, np.float32)
+    g_hxz = np.full((k_steps, bsz, NH_INF), np.nan, np.float32)
+    g_y0 = np.zeros((bsz, NY), np.float32)
+
+    def mlp_bwd(first, n, g, stash, G):
+        """mlp_bwd of the carry pass: g, every rank's copy of the top
+        layer's output cotangent (R, dout); stash, the tile's hidden
+        pre-activations (R, ...); G, the tile's valid rows of the G buffer
+        (written by columns, rank by rank)."""
+        cur = g
+        for il in range(n - 1, -1, -1):
+            ms = rows_of(first + il)
+            din = int(ms[0][5])
+            dst = [np.empty((rows, din), np.float32) for _ in range(n_ranks)]
+            if il > 0:
+                off = sum(int(rows_of(first + i)[0][0]) for i in range(il)) \
+                    - din
+
+                def epi(c0, j, v):
+                    v = np.where(stash[:, off + j] > 0, v, 0)
+                    G[:, off + j] = v[:G.shape[0]]
+                    return v
+                _cluster_dense(params, ms, cur, dst, epi)
+            else:
+                _cluster_dense(params, ms, cur, dst)
+            cur = dst
+        return cur
+
+    for row0 in range(0, bsz, rows):
+        sl = slice(row0, min(bsz, row0 + rows))
+        n = sl.stop - sl.start
+
+        def pad(a):
+            return np.concatenate([a, np.zeros((rows - n,) + a.shape[1:],
+                                               a.dtype)])
+        gy = [np.zeros((rows, NY), np.float32) for _ in range(n_ranks)]
+        gz = [np.zeros((rows, NZ), np.float32) for _ in range(n_ranks)]
+        for k in range(k_steps - 1, -1, -1):
+            g1 = [a + pad(c_ys[k][sl]) for a in gy]
+            gy = g1
+            top = [dt * (pad(c_res[k][sl]) + a) for a in g1]
+            g_dyn[k, sl, gw_d - NY:] = top[0][:n]        # rank 0
+            gyz = mlp_bwd(1 + n_pz, n_dyn, top, pad(st_d[k][sl]),
+                          g_dyn[k][sl])
+            gq = []
+            for c in range(n_ranks):
+                gzt = gyz[c][:, NY:] + gz[c] + pad(c_zs[k][sl])
+                raw = pad(qs[k][sl][:, NZ:])
+                if k % O == 0:
+                    gl = gzt
+                    gr = gzt * pad(eps[k][sl]) / (1 + np.exp(-raw))
+                    gz[c] = np.zeros_like(gzt)
+                else:
+                    gl, gr = np.zeros_like(gzt), np.zeros_like(gzt)
+                    gz[c] = gzt
+                gq.append(np.concatenate([gl, gr], 1) + pad(c_q[k][sl]))
+            g_q[k, sl] = gq[0][:n]
+            for c, m in enumerate(rows_of(0)):          # dL/dhxz by columns
+                w, _, c0, width = _slice(params, m)
+                g_hxz[k, sl, c0:c0 + width] = (gq[c] @ w)[:n]
+            top = [pad(c_p[k][sl]) for _ in range(n_ranks)]
+            g_pz[k, sl, gw_p - 2 * NZ:] = top[0][:n]
+            gyp = mlp_bwd(1, n_pz, top, pad(st_p[k][sl]), g_pz[k][sl])
+            gy = [(gy[c] + gyz[c][:, :NY]) + gyp[c] for c in range(n_ranks)]
+        g_y0[sl] = gy[0][:n]
+    assert not any(np.isnan(a).any() for a in (g_pz, g_dyn, g_hxz))
+
+    # the weight-gradient pass, job by job
+    y_in = np.concatenate([y0[None], ys[:-1]])
+    a_src = [hxz, np.concatenate([y_in, zs], -1), st_p, st_d]
+    g_src = [g_q, g_pz, g_dyn]
+    jobs, sizes, n_grads, _ = krt._wgrad_table(
+        krt._shapes(layers), n_pz, NY, NZ, NH_INF, torch.device("cpu"))
+    grads = np.zeros(n_grads, np.float32)
+    for (a_i, a_ld, a_off, relu, g_i, g_ld, g_off, w_off, b_off, din, dout,
+         _) in jobs.tolist():
+        a = a_src[a_i].reshape(-1, a_ld)[:, a_off:a_off + din]
+        a = np.maximum(a, 0) if relu else a
+        g = g_src[g_i].reshape(-1, g_ld)[:, g_off:g_off + dout]
+        grads[w_off:w_off + dout * din] = (g.T @ a).reshape(-1)
+        grads[b_off:b_off + dout] = g.sum(0)
+    flat = []
+    for w_off, dout, din, b_off in sizes:
+        flat += [grads[w_off:w_off + dout * din].reshape(dout, din),
+                 grads[b_off:b_off + dout]]
+    return [g_y0, g_hxz] + flat
+
+
+def _loss(outs):
+    ys, res, qp, pp, zs = outs
+    return ((ys * 0.3).sum() + (res ** 2).sum() + torch.tanh(qp).sum()
+            + (pp * 0.1).sum() + (zs * 0.05).sum())
+
+
+def _jax_loss(outs):
+    ys, res, qp, pp, zs = outs
+    return (jnp.sum(ys * 0.3) + jnp.sum(res ** 2) + jnp.sum(jnp.tanh(qp))
+            + jnp.sum(pp * 0.1) + jnp.sum(zs * 0.05))
+
+
+def _torch_layer(p):
+    return (torch.from_numpy(np.asarray(p["kernel"]).T.copy()),
+            torch.from_numpy(np.asarray(p["bias"]).copy()))
+
+
+def _linear(rng, din, dout):
+    return {"kernel": (rng.randn(din, dout) / np.sqrt(din)).astype(np.float32),
+            "bias": (0.1 * rng.randn(dout)).astype(np.float32)}
+
+
+def _mlp_params(rng, din, dout):
+    dims = [din] + [NH] * (NLAYERS - 1) + [dout]
+    return [_linear(rng, a, b) for a, b in zip(dims, dims[1:])]
+
+
+@pytest.fixture(scope="module")
+def case():
+    """Weights and draws made with numpy at tiny widths, the JAX Pallas
+    kernels' results on them in interpret mode (jitted: one compile each),
+    and the same weights as torch layers."""
+    rng = np.random.RandomState(3)
+    q_p = _linear(rng, NH_INF, 2 * NZ)
+    pz_p = _mlp_params(rng, NY, 2 * NZ)
+    dyn_p = _mlp_params(rng, NY + NZ, NY)
+    y0 = (0.5 * rng.randn(BSZ, NY)).astype(np.float32)
+    hxz = rng.randn(N_STEPS, BSZ, NH_INF).astype(np.float32)
+    eps = rng.randn(N_STEPS, BSZ, NZ).astype(np.float32)
+    prior = jax.jit(lambda pz, dyn, y, e: prior_rollout_fused(
+        pz, dyn, y, e, NY, NZ, O, interpret=True))(pz_p, dyn_p, y0, eps)
+    fused = make_train_rollout(NY, NZ, NH_INF, NH, N_STEPS, O,
+                               interpret=True)
+    g_q, g_pz, g_dyn, g_y0, g_hxz = jax.jit(jax.grad(
+        lambda *a: _jax_loss(fused(*a, eps)), argnums=(0, 1, 2, 3, 4)))(
+        q_p, pz_p, dyn_p, y0, hxz)
+    jax_grads = [g_y0, g_hxz] + [
+        np.asarray(g[k]).T if k == "kernel" else g[k]
+        for g in [g_q, *g_pz, *g_dyn] for k in ("kernel", "bias")]
+    return dict(q=_torch_layer(q_p), pz=[_torch_layer(p) for p in pz_p],
+                dyn=[_torch_layer(p) for p in dyn_p], y0=y0, hxz=hxz,
+                eps=eps, prior=np.asarray(prior),
+                jax_grads=[np.asarray(g) for g in jax_grads])
+
+
+@pytest.mark.parametrize("n_ranks,rows", [(1, 4), (2, 8), (8, 4), (16, 8)])
+def test_cluster_prior_rollout_matches_references(case, n_ranks, rows):
+    out = emulate_prior(case["pz"], case["dyn"], case["y0"], case["eps"],
+                        n_ranks, rows)
+    ref = kr.prior_rollout_reference(
+        case["pz"], case["dyn"], torch.from_numpy(case["y0"]),
+        torch.from_numpy(case["eps"]), NY, NZ, O).numpy()
+    for other in (ref, case["prior"]):
+        np.testing.assert_allclose(out, other, rtol=ROLLOUT_RTOL,
+                                   atol=ROLLOUT_ATOL)
+
+
+@pytest.mark.parametrize("n_ranks,rows", [(1, 4), (2, 8), (8, 4), (16, 8)])
+def test_cluster_carry_pass_matches_references(case, n_ranks, rows):
+    q, pz, dyn = case["q"], case["pz"], case["dyn"]
+    leaves = [torch.from_numpy(case["y0"]).requires_grad_(),
+              torch.from_numpy(case["hxz"]).requires_grad_()]
+    flat = [t.clone().requires_grad_() for w, b in [q, *pz, *dyn]
+            for t in (w, b)]
+    pairs = [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+    outs = krt.train_rollout_reference(
+        pairs[0], pairs[1:1 + NLAYERS], pairs[1 + NLAYERS:], leaves[0],
+        leaves[1], torch.from_numpy(case["eps"]), O)
+    ref = torch.autograd.grad(_loss(outs), leaves + flat)
+    cots = [c.detach().numpy() for c in torch.autograd.grad(
+        _loss(outs), outs)]
+    got = emulate_train_backward(q, pz, dyn, case["y0"], case["hxz"],
+                                 case["eps"], cots, n_ranks, rows)
+    assert len(got) == len(ref) == len(case["jax_grads"])
+    for i, (a, b, c) in enumerate(zip(got, ref, case["jax_grads"])):
+        for other, name in ((b.numpy(), "autograd"), (c, "jax")):
+            np.testing.assert_allclose(a, other, rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL, err_msg=f"{name} {i}")
+
+
+def test_emulation_catches_a_wrong_slice(case, monkeypatch):
+    """The emulation reads the packed slices through the meta rows: one
+    rank's column offset moved by a group of 4 fails it."""
+    real = kr._packing.__wrapped__
+
+    def shifted(*args):
+        index, meta = real(*args)
+        meta = meta.clone()
+        meta[1, 4] += 4                 # rank 1 of layer 0 writes elsewhere
+        return index, meta
+    monkeypatch.setattr(kr, "_packing", shifted)
+    with pytest.raises(AssertionError):
+        emulate_prior(case["pz"], case["dyn"], case["y0"], case["eps"], 8, 4)
