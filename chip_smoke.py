@@ -21,12 +21,14 @@ Phases, each of which fails the script:
      o=1), at a small o=2, ny != nz case and at the KTH step's (B=100, 38
      substeps, o=2): forward at rtol 2e-5 / atol 1e-6, the gradients of
      every input and weight of a loss that touches every output at rtol
-     5e-4 / atol 5e-6 (tests/test_pallas_train.py), a second backward
-     giving the same bits. Inputs are drawn so that no ReLU input sits near
-     the kink, and a float64 plain run arbitrates elements that fp32 cannot
-     resolve (kernels/parity.py; the raw error, the elements it excused and
-     the worst gradient are printed); times of the forward, the backward
-     and the plain version's, and the backward's carry pass,
+     5e-4 / atol 5e-6 (tests/test_pallas_train.py), the forward's stashed
+     pre-activations at the forward's tolerance, a second launch giving the
+     same bits (forward outputs, stashes and gradients); each line names
+     both passes' cluster plans. Inputs are drawn so that no ReLU input
+     sits near the kink, and a float64 plain run arbitrates elements that
+     fp32 cannot resolve (kernels/parity.py; the raw error, the elements it
+     excused and the worst gradient are printed); times of the forward, the
+     backward and the plain version's, and the backward's carry pass,
      weight-gradient pass and the rest of its wrapper apart (CUDA events
      the wrapper records), beside the bounds of each;
   5. kernel vs plain, vgg pool and upsample (kernels 4-7): each kernel at
@@ -99,7 +101,6 @@ It exits non-zero without a result when CUDA is unavailable.
 
 import copy
 import dataclasses
-import functools
 import json
 import sys
 import time
@@ -355,15 +356,15 @@ def leaf_names(n_pz, n_dyn):
 
 
 def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
-                        oversampling, seed, margin=parity.KINK_MARGIN,
-                        plan=None):
+                        oversampling, seed, margin=parity.KINK_MARGIN):
     """Training-rollout kernels (forward, and backward through a loss that
     touches every output) against the plain version on the card, on
-    kink-free inputs, the carry pass with `plan` (by default the wrapper's);
-    a second backward must give the same bits. Times the kernels' forward
-    and backward, the backward's two passes and the rest of its wrapper
-    apart, and the plain version's forward and backward. Returns the
-    measured row."""
+    kink-free inputs, each pass at its wrapper's plan; the forward's
+    stashed pre-activations against the plain ones too. A second launch
+    must give the same bits: the forward's outputs and stashes, and the
+    gradients. Times the kernels' forward and backward, the backward's two
+    passes and the rest of its wrapper apart, and the plain version's
+    forward and backward. Returns the measured row."""
     nh_inf, ny = q_layer[0].shape[1], pz_layers[0][0].shape[1]
     nz = q_layer[0].shape[0] // 2
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -373,12 +374,17 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
     layers = [q_layer] + list(pz_layers) + list(dyn_layers)
     flat = [t.detach() for w, b in layers for t in (w, b)]
     n_pz = len(pz_layers)
+    lib = kbuild.load_library()
     hmax = krollout_train.bwd_hmax(layers)
-    plan = plan or krollout_train.bwd_plan(bsz, ny, nz, hmax, y0.device)
+    plan = krollout_train.bwd_plan(bsz, ny, nz, hmax, y0.device)
     resident = krollout.check_schedulable(
-        kbuild.load_library().srvp_train_rollout_bwd_clusters,
-        (ny, nz, hmax), plan, y0.device)
-    kernel = functools.partial(krollout_train.train_rollout, plan=plan)
+        lib.srvp_train_rollout_bwd_clusters, (ny, nz, hmax), plan, y0.device)
+    fwd_hmax = krollout_train.fwd_hmax(layers)
+    fplan = krollout_train.fwd_plan(bsz, ny, nz, nh_inf, fwd_hmax, y0.device)
+    fwd_resident = krollout.check_schedulable(
+        lib.srvp_train_rollout_fwd_clusters, (ny, nz, nh_inf, fwd_hmax),
+        fplan, y0.device)
+    kernel = krollout_train.train_rollout
 
     def leaves(dtype=torch.float32):
         return [t.to(dtype, copy=True).requires_grad_()
@@ -400,14 +406,34 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
         grads = torch.autograd.grad(parity.rollout_loss(outs), lv)
         runs[route] = (outs, grads, lv)
     lv = runs["kernel"][2]
-    again = torch.autograd.grad(parity.rollout_loss(call(kernel, lv)), lv)
+    outs_again = call(kernel, lv)
+    again = torch.autograd.grad(parity.rollout_loss(outs_again), lv)
+    # the forward alone, with its stashes: twice on the kernel, then the
+    # plain version in float32 and float64
+    stashed = [krollout_train.train_rollout_forward(
+        q_layer, pz_layers, dyn_layers, y0, hxz, eps, oversampling)
+        for _ in range(2)]
+    for dtype in (torch.float32, torch.float64):
+        lw = [t.to(dtype) for t in flat]
+        pairs = [(lw[i], lw[i + 1]) for i in range(0, len(lw), 2)]
+        stashed.append(krollout_train.train_rollout_reference(
+            pairs[0], pairs[1:1 + n_pz], pairs[1 + n_pz:], y0.to(dtype),
+            hxz.to(dtype), eps.to(dtype), oversampling, stash=True))
     torch.cuda.synchronize()
-    same_bits = all(bit_equal(a, b) for a, b in zip(runs["kernel"][1], again))
-    # per output / gradient: (max |err|, finite, raw err/tol, arbitrated
-    # err/tol, elements excused by the float64 arbiter)
+    fwd_same_bits = all(bit_equal(a, b) for a, b in zip(
+        runs["kernel"][0] + stashed[0], outs_again + stashed[1])) and all(
+        bit_equal(a, b) for a, b in zip(runs["kernel"][0], stashed[0]))
+    bwd_same_bits = all(bit_equal(a, b)
+                        for a, b in zip(runs["kernel"][1], again))
+    same_bits = fwd_same_bits and bwd_same_bits
+    # per output / stash / gradient: (max |err|, finite, raw err/tol,
+    # arbitrated err/tol, elements excused by the float64 arbiter)
     fwd = [_worst(a, b, TRAIN_RTOL, TRAIN_ATOL)[::2]
            + parity.agreement(a, b, c, TRAIN_RTOL, TRAIN_ATOL)
            for a, b, c in zip(*(runs[r][0] for r in runs))]
+    fwd += [_worst(a, b, TRAIN_RTOL, TRAIN_ATOL)[::2]
+            + parity.agreement(a, b, c, TRAIN_RTOL, TRAIN_ATOL)
+            for a, b, c in zip(*(st[5:] for st in stashed[1:]))]
     bwd = [_worst(a, b, GRAD_RTOL, GRAD_ATOL)[::2]
            + parity.agreement(a, b, c, GRAD_RTOL, GRAD_ATOL)
            for a, b, c in zip(*(runs[r][1] for r in runs))]
@@ -431,8 +457,9 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
                                      ny, nz)
     row = dict(case=name, B=bsz, n_steps=n_steps, oversampling=oversampling,
                ny=ny, nz=nz, kink_margin=margin, rows_redrawn=redrawn,
-               fwd_rows=krollout_train._rows(
-                   bsz, ny, nz, nh_inf, hmax),
+               fwd_rows=fplan.rows, fwd_cluster=fplan.cluster,
+               fwd_blocks=fplan.tiles * fplan.cluster,
+               fwd_clusters_resident=fwd_resident,
                bwd_rows=plan.rows, bwd_cluster=plan.cluster,
                bwd_blocks=plan.tiles * plan.cluster,
                bwd_clusters_resident=resident,
@@ -446,7 +473,8 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
                bwd_elements_excused=sum(b[4] for b in bwd),
                bwd_worst=leaf_names(n_pz, len(dyn_layers))[
                    max(range(len(bwd)), key=lambda i: bwd[i][3])],
-               bwd_same_bits=same_bits, **times)
+               fwd_same_bits=fwd_same_bits, bwd_same_bits=bwd_same_bits,
+               **times)
     for part, (ms, by) in bounds.items():
         row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = ms, by
     row["plain_fwd_bwd_ms"] = times["plain_fwd_ms"] + times["plain_bwd_ms"]
@@ -458,7 +486,8 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
                          f"version ({name}): forward err/tol "
                          f"{row['fwd_err_over_tol_f64']}, gradients err/tol "
                          f"{row['bwd_err_over_tol_f64']}, same bits on a "
-                         f"second backward: {same_bits}")
+                         f"second forward: {fwd_same_bits}, backward: "
+                         f"{bwd_same_bits}")
     return row
 
 
@@ -1474,7 +1503,8 @@ def main():
           f"{batch_row['plain_ms']:.4f} ms)", flush=True)
     for what, tr in (("dcgan", train_row), ("kth", kth_train_row)):
         print(f"{what} training rollout B={tr['B']}, K={tr['n_steps']}: "
-              f"forward {tr['kernel_fwd_ms']:.4f} ms, backward "
+              f"forward {tr['kernel_fwd_ms']:.4f} ms (R={tr['fwd_rows']}, "
+              f"C={tr['fwd_cluster']}, {tr['fwd_blocks']} blocks), backward "
               f"{tr['kernel_bwd_ms']:.4f} ms = carry pass "
               f"{tr['carry_ms']:.4f} (R={tr['bwd_rows']}, "
               f"C={tr['bwd_cluster']}, {tr['bwd_blocks']} blocks) + "

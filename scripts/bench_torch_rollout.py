@@ -24,11 +24,12 @@ no host time. Where the checkout's wrapper records its backward's parts
 the rest of the wrapper are also given apart by CUDA events.
 
 `--kernels` picks which to time (2 and 3 go together). `--plans` also
-times kernel 1 at B = 160 (dcgan) at every cluster plan that fits one wave
-(one block an SM, as `kernels/rollout.cluster_plan` requires) and fits
+times kernel 1 at B = 160 (dcgan) and kernel 2 at B = 128 (the dcgan
+training step) at every cluster plan that fits one wave (one block an SM,
+as `kernels/rollout.cluster_plan` requires) and fits each to
 t = a + alpha R + beta / C (us a substep, device time) by least squares on
 the relative error: the cost model behind that plan, whose WEIGHT_ROWS is
-beta / alpha.
+beta / alpha; and kernel 3's carry pass at B = 128 at every such plan.
 
 Prints one JSON line with the card's name and power limit. Needs CUDA.
 """
@@ -83,6 +84,26 @@ def device_ms(torch, fn, reps):
                 out[short] = out.get(short, 0.0) \
                     + ev.device_time_total / 1e3 / reps
     return out
+
+
+def plan_fit(rows, n_steps):
+    """t (us a substep) = a + alpha R + beta / C over rows of (R, C, device
+    ms), least squares on the relative error (each row divided by its t)."""
+    a = np.array([[1.0, r, 1.0 / c] for r, c, _ in rows])
+    t = np.array([1e3 * dev / n_steps for _, _, dev in rows])
+    (c0, alpha, beta), *_ = np.linalg.lstsq(a / t[:, None], t / t,
+                                            rcond=None)
+    return dict(a=c0, alpha=alpha, beta=beta, weight_rows=beta / alpha)
+
+
+def one_wave(kr, bsz, resident):
+    """The plans of a batch of bsz rows that fit one wave: one block an SM,
+    and no more clusters than resident(plan) says the card holds."""
+    for c in kr.CLUSTERS:
+        for r in kr.ROWS:
+            plan = kr.Plan(r, c, -(-bsz // r))
+            if plan.tiles * c <= kr.N_SMS and plan.tiles <= resident(plan):
+                yield plan
 
 
 def layers(torch, MLP, ny, nz, seed):
@@ -180,58 +201,58 @@ def main():
     if args.plans:
         _, pz, dyn = layers(torch, MLP, 20, 20, 0)
         hmax = NH
-        rows = []
-        for c in kr.CLUSTERS:
-            for r in kr.ROWS:
-                plan = kr.Plan(r, c, -(-160 // r))
-                if plan.tiles * c <= kr.N_SMS and plan.tiles <= \
-                        kr.resident_clusters(20, 20, hmax, plan,
-                                             torch.device("cuda")):
-                    rows.append((r, c) + prior("dcgan", DCGAN, 160, 20, 1,
-                                               plan=plan))
+        cuda = torch.device("cuda")
+        rows = [(p.rows, p.cluster) + prior("dcgan", DCGAN, 160, 20, 1,
+                                            plan=p)
+                for p in one_wave(kr, 160, lambda p: kr.resident_clusters(
+                    20, 20, hmax, p, cuda))]
         out["k1_dcgan_B160_plans"] = [dict(rows=r, cluster=c, ms=ms,
                                            device_ms=dev)
                                       for r, c, ms, dev in rows]
-        # t (us a substep) = a + alpha R + beta / C, least squares on the
-        # relative error (each row divided by its t)
-        a = np.array([[1.0, r, 1.0 / c] for r, c, _, _ in rows])
-        t = np.array([1e3 * dev / 20 for _, _, _, dev in rows])
-        (c0, alpha, beta), *_ = np.linalg.lstsq(a / t[:, None], t / t,
-                                                rcond=None)
-        out["k1_plan_fit_us"] = dict(a=c0, alpha=alpha, beta=beta,
-                                     weight_rows=beta / alpha)
+        out["k1_plan_fit_us"] = plan_fit([(r, c, dev)
+                                          for r, c, _, dev in rows], 20)
         out["k1_plan_chosen"] = kr.launch_plan(pz, dyn, 160, 20, 20)[0]
         out["clusters_resident_R12"] = {
-            c: kr.resident_clusters(20, 20, hmax, kr.Plan(12, c, 1),
-                                    torch.device("cuda"))
+            c: kr.resident_clusters(20, 20, hmax, kr.Plan(12, c, 1), cuda)
             for c in kr.CLUSTERS}
-        # the carry pass at the dcgan training step, by plan
+        # kernel 2 and the carry pass at the dcgan training step, by plan
         q, pz, dyn = layers(torch, MLP, 20, 20, 1)
         y0 = torch.randn(128, 20, generator=gen, device="cuda",
                          requires_grad=True)
         hxz = torch.randn(14, 128, NH_INF, generator=gen, device="cuda",
                           requires_grad=True)
         eps = torch.randn(14, 128, 20, generator=gen, device="cuda")
+        lib = kr._lib()
+        fwd = []
+        for plan in one_wave(kr, 128, lambda p: kr.check_schedulable(
+                lib.srvp_train_rollout_fwd_clusters, (20, 20, NH_INF, hmax),
+                p, cuda)):
+            call = lambda: krt.train_rollout_forward(  # noqa: E731
+                q, pz, dyn, y0, hxz, eps, 1, plan)
+            fwd.append(dict(rows=plan.rows, cluster=plan.cluster,
+                            ms=cuda_ms(torch, call, reps=args.reps),
+                            device_ms=device_ms(torch, call,
+                                                args.reps).get("fwd")))
+        out["k2_dcgan_plans"] = fwd
+        out["k2_plan_fit_us"] = plan_fit(
+            [(f["rows"], f["cluster"], f["device_ms"]) for f in fwd], 14)
+        out["k2_dcgan_plan_chosen"] = krt.fwd_plan(128, 20, 20, NH_INF, hmax,
+                                                   cuda)
         leaves = [y0, hxz] + [t for w, b in [q, *pz, *dyn] for t in (w, b)]
         carry = []
-        for c in kr.CLUSTERS:
-            for r in kr.ROWS:
-                plan = kr.Plan(r, c, -(-128 // r))
-                if plan.tiles * c > kr.N_SMS or plan.tiles > \
-                        kr.check_schedulable(
-                            kr._lib().srvp_train_rollout_bwd_clusters,
-                            (20, 20, hmax), plan, torch.device("cuda")):
-                    continue
-                outs = krt.train_rollout(q, pz, dyn, y0, hxz, eps, 1,
-                                         plan=plan)
-                cots = [torch.ones_like(t) for t in outs]
-                dev = device_ms(torch, lambda: torch.autograd.grad(  # noqa
-                    outs, leaves, cots, retain_graph=True), args.reps)
-                carry.append(dict(rows=r, cluster=c,
-                                  device_ms=dev.get("carry")))
+        for plan in one_wave(kr, 128, lambda p: kr.check_schedulable(
+                lib.srvp_train_rollout_bwd_clusters, (20, 20, hmax), p,
+                cuda)):
+            outs = krt.train_rollout(q, pz, dyn, y0, hxz, eps, 1,
+                                     bwd_plan=plan)
+            cots = [torch.ones_like(t) for t in outs]
+            dev = device_ms(torch, lambda: torch.autograd.grad(  # noqa
+                outs, leaves, cots, retain_graph=True), args.reps)
+            carry.append(dict(rows=plan.rows, cluster=plan.cluster,
+                              device_ms=dev.get("carry")))
         out["k3_dcgan_carry_plans"] = carry
         out["k3_dcgan_carry_plan_chosen"] = krt.bwd_plan(
-            128, 20, 20, hmax, torch.device("cuda"))
+            128, 20, 20, hmax, cuda)
     print(json.dumps(out), flush=True)
 
 

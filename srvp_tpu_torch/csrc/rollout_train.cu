@@ -17,17 +17,30 @@
 // What bounds it on the H100: arithmetic. At the flagship widths a row does
 // 1,120,256 multiply-adds per substep (q 256->40, p_z 20->512->512->512->40,
 // dynamics 40->512->512->512->20): 4.0 GFLOP forward at B=128, K=14, and
-// twice that backward (the input gradients and the weight gradients).
+// twice that backward (the input gradients and the weight gradients). What
+// held the forward's first design back (one block a tile of R rows, 32
+// blocks at B = 128): each block took in all 4.48 MB of weights from L2 on
+// every substep, about 90 us a substep at any R (PERF.md).
 //
 // Design. The TPU kernels pin the weights in VMEM and run the substeps as a
-// sequential grid axis with the state in scratch. Here:
-//  * forward: one launch; one block per tile of R rows with the substep loop
-//    inside the block, the tile's state and activations in shared memory and
-//    the weights streamed from L2, as rollout.cu (tile_mlp.cuh);
-//  * backward, carry pass: one launch walking the substeps backwards, on
-//    rollout.cu's cluster design: a thread-block cluster of C blocks shares
-//    a tile of R rows (kernels/rollout.py `cluster_plan`), each rank
-//    computes its slice of the columns of every product g W^T (W read in
+// sequential grid axis with the state in scratch. Here both the forward and
+// the carry pass run on rollout.cu's cluster design: one launch, the substep
+// loop inside the block, and a thread-block cluster of C blocks sharing a
+// tile of R rows (kernels/rollout.py `cluster_plan`; the forward's plan is
+// kernels/rollout_train.py `fwd_plan`). Each rank computes its slice of every
+// layer's columns from its own packed slice of W and writes it into every
+// rank's shared memory, one cluster barrier a layer, so each SM takes in 1/C
+// of the weights (4.48 MB at the flagship widths) from L2 a substep.
+//  * forward: each rank loads the tile's hxz_k, computes its columns of q
+//    (stored to qpar by their owner, pushed to every rank on the substeps
+//    that draw z), then p_z and the dynamics: a hidden layer's owner stores
+//    the pre-activation of its columns to the stash and pushes their ReLU;
+//    p_z's last layer is stored (ppar) and not pushed, the dynamics' last is
+//    pushed. Every element of qpar, ppar and the stashes is stored once, by
+//    the rank that owns its column. z, the Euler update and y are computed
+//    by every rank on the same values; rank 0 stores zs, ys and res;
+//  * backward, carry pass: one launch walking the substeps backwards; each
+//    rank computes its slice of the columns of every product g W^T (W read in
 //    its (out, in) layout, each rank's slice packed contiguously) and writes
 //    it into every rank's shared memory, one cluster barrier a layer. A rank
 //    reads only its columns of each stashed pre-activation for the ReLU mask
@@ -58,40 +71,6 @@ __device__ __forceinline__ int width_sum(const int* meta, int n, int stride,
   return s;
 }
 
-// Forward MLP over the tile. The hidden pre-activations (output of every
-// layer but the last) go to `stash` at row stride `ld`, one layer after the
-// other; then ReLU is applied in shared memory for the next layer. Returns
-// the buffer that holds the output (buf0 or buf1).
-template <int R>
-__device__ const float* mlp_fwd_stash(const float* __restrict__ params,
-                                      const int* __restrict__ meta, int n,
-                                      const float* hin, float* buf0,
-                                      float* buf1, float* red, float* stash,
-                                      int ld, int row0, int B) {
-  const int tid = threadIdx.x;
-  const float* h = hin;
-  float* o = buf0;
-  int off = 0;
-  for (int l = 0; l < n; ++l) {
-    dense<R>(params, meta + kMeta * l, h, o, false, red);
-    if (l < n - 1) {
-      const int dout = meta[kMeta * l + 1];
-      for (int idx = tid; idx < R * dout; idx += kThreads) {
-        const int r = idx / dout, j = idx % dout;
-        const int row = row0 + r;
-        const float v = o[j * R + r];
-        if (row < B) stash[(size_t)row * ld + off + j] = v;
-        o[j * R + r] = fmaxf(v, 0.0f);
-      }
-      off += dout;
-      __syncthreads();
-    }
-    h = o;
-    o = (o == buf0) ? buf1 : buf0;
-  }
-  return h;
-}
-
 // Writes the tile's [n][R] shared buffer to rows of a (B, ld) slab at column
 // offset `off`.
 template <int R>
@@ -116,8 +95,87 @@ __device__ void load_tile(const float* src, int n, int ld, int off, float* s,
   }
 }
 
+// Epilogue that stores 4 rows of column c0 + j to a (B, ld) slab in device
+// memory only (rows past B are not stored): the carry pass's dL/dhxz, which
+// no later layer reads, and the forward's stores (StorePush).
+struct StoreRows {
+  float* dst;
+  int ld, c0, row0, B;
+  __device__ void operator()(int j, int r0, float4 v) const {
+    const float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + r0 + i;
+      if (row < B) dst[(size_t)row * ld + c0 + j] = a[i];
+    }
+  }
+};
+
+// Epilogue of the forward's layers: 4 rows of column c0 + j are stored to a
+// (B, ld) slab in device memory (`dst`; null: not stored) as computed, and
+// written into `buf` of every rank (null: not pushed), ReLU first when relu.
+// So a hidden layer's owner stashes its pre-activation and hands its
+// activation on.
 template <int R>
-__global__ void __launch_bounds__(kThreads)
+struct StorePush {
+  float* dst;
+  int ld, row0, B;
+  float* buf;
+  int c0;
+  bool relu;
+  __device__ void operator()(int j, int r0, float4 v) const {
+    if (dst) StoreRows{dst, ld, c0, row0, B}(j, r0, v);
+    if (buf) PushAll<R>{buf, c0, relu}(j, r0, v);
+  }
+};
+
+// Forward MLP over the tile in a cluster of C blocks (meta rows kMeta *
+// (l * C + rank)): each rank computes its slice of every layer's columns. A
+// hidden layer's epilogue stores the pre-activation of the rank's columns
+// to `stash` (row stride s_ld, the layers one after the other) and writes
+// their ReLU into buf[nxt] of every rank; then the cluster barrier, and nxt
+// alternates, as rollout.cu's mlp. The last layer stores its columns to
+// `out` (row stride out_ld) and pushes nothing when out is not null:
+// nothing else in the substep reads it, so only the block's barrier follows
+// (before `red` is written again) and nxt stays, which keeps the
+// alternation sound (the next layer writes the buffer that this MLP's
+// second-to-last layer read, before the last barrier). Otherwise the last
+// layer is pushed, without ReLU, and the function returns the buffer that
+// holds it.
+template <int R, int RW>
+__device__ const float* mlp_fwd(const float* __restrict__ params,
+                                const int* __restrict__ meta, int n,
+                                const float* hin, float* const* buf, int& nxt,
+                                float* red, float* stash, int s_ld,
+                                float* out, int out_ld, int row0, int B,
+                                int rank, int C) {
+  const float* h = hin;
+  int off = 0;
+  for (int l = 0; l < n; ++l) {
+    const int* m = meta + kMeta * (l * C + rank);
+    if (l < n - 1) {
+      dense_slice<R, RW>(params, m, h, red,
+                         StorePush<R>{stash + off, s_ld, row0, B, buf[nxt],
+                                      m[4], true});
+      off += m[5];
+    } else if (out) {
+      dense_slice<R, RW>(params, m, h, red,
+                         StorePush<R>{out, out_ld, row0, B, nullptr, m[4],
+                                      false});
+      __syncthreads();
+      return nullptr;
+    } else {
+      dense_slice<R, RW>(params, m, h, red, PushAll<R>{buf[nxt], m[4], false});
+    }
+    tile_barrier();
+    h = buf[nxt];
+    nxt ^= 1;
+  }
+  return h;
+}
+
+template <int R, int RW>
+__global__ void __launch_bounds__(kThreads, 1)
 train_rollout_fwd_kernel(const float* __restrict__ params,
                          const int* __restrict__ meta, int n_pz, int n_dyn,
                          const float* __restrict__ y0,
@@ -132,16 +190,19 @@ train_rollout_fwd_kernel(const float* __restrict__ params,
   float* yz = reinterpret_cast<float*>(smem4);  // [ny + nz][R]: y then z
   float* hx = yz + (ny + nz) * R;               // [nh_inf][R]
   float* q = hx + nh_inf * R;                   // [2 nz][R]
-  float* buf0 = q + 2 * nz * R;                 // [hmax][R]
-  float* buf1 = buf0 + hmax * R;                // [hmax][R]
-  float* red = buf1 + hmax * R;                 // [4 kThreads][R]
+  float* buf[2] = {q + 2 * nz * R,              // [hmax][R] each
+                   q + (2 * nz + hmax) * R};
+  float* red = buf[1] + hmax * R;               // [4 kThreads][R]
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * R;
-  const int* meta_p = meta + kMeta;
-  const int* meta_d = meta + kMeta * (1 + n_pz);
+  const int C = cluster_size(), rank = cluster_rank();
+  const int row0 = (blockIdx.x / C) * R;
+  const int stride = kMeta * C;  // meta rows of one layer
+  const int* mq = meta + kMeta * rank;
+  const int* meta_p = meta + stride;
+  const int* meta_d = meta + stride * (1 + n_pz);
   // stash row widths: every layer's output but the last
-  const int sw_p = width_sum(meta_p, n_pz - 1, kMeta, 1);
-  const int sw_d = width_sum(meta_d, n_dyn - 1, kMeta, 1);
+  const int sw_p = width_sum(meta_p, n_pz - 1, stride, 5);
+  const int sw_d = width_sum(meta_d, n_dyn - 1, stride, 5);
   const int nq = 2 * nz;
 
   for (int idx = tid; idx < R * (ny + nz); idx += kThreads) {
@@ -149,14 +210,26 @@ train_rollout_fwd_kernel(const float* __restrict__ params,
     const int row = row0 + r;
     yz[k * R + r] = (k < ny && row < B) ? y0[(size_t)row * ny + k] : 0.0f;
   }
+  // every rank has started (its shared memory exists) before any rank
+  // writes into it
+  tile_barrier();
 
+  int nxt = 0;
   for (int t = 0; t < K; ++t) {
     const size_t step = (size_t)t * B;
-    load_tile<R>(hxz + step * nh_inf, nh_inf, nh_inf, 0, hx, row0, B);
-    __syncthreads();
-    dense<R>(params, meta, hx, q, false, red);
-    store_tile<R>(q, nq, qpar + step * nq, nq, 0, row0, B);
-    if (t % o == 0) {
+    const bool draw = t % o == 0;
+    // q head: the rank's columns of q_t, stored; pushed to every rank only
+    // when z is drawn from them (the cluster barrier then follows)
+    if (mq[1] > 0) {
+      load_tile<R>(hxz + step * nh_inf, nh_inf, nh_inf, 0, hx, row0, B);
+      __syncthreads();
+    }
+    dense_slice<R, RW>(params, mq, hx, red,
+                       StorePush<R>{qpar + step * nq, nq, row0, B,
+                                    draw ? q : nullptr, mq[4], false});
+    if (draw) {
+      tile_barrier();
+      // every rank draws z for the whole tile, on the same values
       for (int idx = tid; idx < R * nz; idx += kThreads) {
         const int r = idx / nz, k = idx % nz;
         const int row = row0 + r;
@@ -164,31 +237,32 @@ train_rollout_fwd_kernel(const float* __restrict__ params,
         yz[(ny + k) * R + r] =
             q[k * R + r] + e * (softplus(q[(nz + k) * R + r]) + 1e-8f);
       }
-      __syncthreads();
     }
-    store_tile<R>(yz + ny * R, nz, zs + step * nz, nz, 0, row0, B);
-
-    const float* p = mlp_fwd_stash<R>(params, meta_p, n_pz, yz, buf0, buf1,
-                                      red, stash_p + step * sw_p, sw_p, row0,
-                                      B);
-    store_tile<R>(p, nq, ppar + step * nq, nq, 0, row0, B);
     __syncthreads();
-    const float* rr = mlp_fwd_stash<R>(params, meta_d, n_dyn, yz, buf0, buf1,
-                                       red, stash_d + step * sw_d, sw_d,
-                                       row0, B);
+    if (rank == 0)
+      store_tile<R>(yz + ny * R, nz, zs + step * nz, nz, 0, row0, B);
+
+    mlp_fwd<R, RW>(params, meta_p, n_pz, yz, buf, nxt, red,
+                   stash_p + step * sw_p, sw_p, ppar + step * nq, nq, row0,
+                   B, rank, C);
+    const float* rr = mlp_fwd<R, RW>(params, meta_d, n_dyn, yz, buf, nxt,
+                                     red, stash_d + step * sw_d, sw_d,
+                                     nullptr, 0, row0, B, rank, C);
     for (int idx = tid; idx < R * ny; idx += kThreads) {
       const int r = idx / ny, k = idx % ny;
       const int row = row0 + r;
       const float rv = dt * rr[k * R + r];
       const float y = yz[k * R + r] + rv;
       yz[k * R + r] = y;
-      if (row < B) {
+      if (rank == 0 && row < B) {
         ys[(step + row) * ny + k] = y;
         res[(step + row) * ny + k] = rv;
       }
     }
     __syncthreads();
   }
+  // the last write into another rank's shared memory (the dynamics' last
+  // layer) came before the last cluster barrier, so every rank may exit now
 }
 
 // Epilogue of a hidden layer's backward product in the carry pass: 4 rows of
@@ -214,21 +288,6 @@ struct MaskStorePush {
       if (row < B) G[(size_t)row * g_ld + col] = a[i];
     }
     PushAll<R>{dst, c0, false}(j, r0, make_float4(a[0], a[1], a[2], a[3]));
-  }
-};
-
-// Epilogue that stores 4 rows of column c0 + j to a (B, ld) slab in device
-// memory only (the q head's dL/dhxz, which no later layer reads).
-struct StoreRows {
-  float* dst;
-  int ld, c0, row0, B;
-  __device__ void operator()(int j, int r0, float4 v) const {
-    const float a[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + r0 + i;
-      if (row < B) dst[(size_t)row * ld + c0 + j] = a[i];
-    }
   }
 };
 
@@ -528,8 +587,9 @@ train_rollout_wgrad_kernel(const int* __restrict__ jobs, int n_jobs,
 
 template <int R>
 size_t fwd_smem(int ny, int nz, int nh_inf, int hmax) {
-  return sizeof(float) * R *
-         (ny + nz + nh_inf + 2 * nz + 2 * hmax + 4 * kThreads);
+  const size_t need = sizeof(float) * R *
+                      (ny + nz + nh_inf + 2 * nz + 2 * hmax + 4 * kThreads);
+  return need > kOneBlockSmem ? need : kOneBlockSmem;
 }
 
 template <int R>
@@ -540,22 +600,34 @@ size_t bwd_smem(int ny, int nz, int hmax) {
   return need > kOneBlockSmem ? need : kOneBlockSmem;
 }
 
+// the forward's instance for clusters of C blocks (tile_mlp.cuh row_tile)
+template <int R>
+auto fwd_kernel_for(int C) {
+  return C > 1 ? train_rollout_fwd_kernel<R, row_tile<R>(true)>
+               : train_rollout_fwd_kernel<R, row_tile<R>(false)>;
+}
+
 template <int R>
 cudaError_t launch_fwd(const float* params, const int* meta, int n_pz,
                        int n_dyn, const float* y0, const float* hxz,
                        const float* eps, float* ys, float* res, float* qpar,
                        float* ppar, float* zs, float* stash_p, float* stash_d,
                        int B, int ny, int nz, int nh_inf, int K, int o,
-                       int hmax, cudaStream_t stream) {
+                       int hmax, int C, cudaStream_t stream) {
   const size_t smem = fwd_smem<R>(ny, nz, nh_inf, hmax);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_rollout_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = prepare_cluster_kernel(fwd_kernel_for<R>(C), smem, C);
   if (err != cudaSuccess) return err;
-  train_rollout_fwd_kernel<R><<<(B + R - 1) / R, kThreads, smem, stream>>>(
-      params, meta, n_pz, n_dyn, y0, hxz, eps, ys, res, qpar, ppar, zs,
-      stash_p, stash_d, B, ny, nz, nh_inf, K, o, 1.0f / (float)o, hmax);
-  return cudaGetLastError();
+  return launch_cluster(fwd_kernel_for<R>(C), (B + R - 1) / R * C, C, smem,
+                        stream, params, meta, n_pz, n_dyn, y0, hxz, eps, ys,
+                        res, qpar, ppar, zs, stash_p, stash_d, B, ny, nz,
+                        nh_inf, K, o, 1.0f / (float)o, hmax);
+}
+
+template <int R>
+cudaError_t fwd_clusters(int ny, int nz, int nh_inf, int hmax, int C,
+                         int* n) {
+  return max_active_clusters(fwd_kernel_for<R>(C), C,
+                             fwd_smem<R>(ny, nz, nh_inf, hmax), n);
 }
 
 // the carry pass's instance for clusters of C blocks (tile_mlp.cuh
@@ -600,18 +672,19 @@ cudaError_t bwd_clusters(int ny, int nz, int hmax, int C, int* n) {
 // C entry points, bound with ctypes. Every tensor is fp32 (int32 for meta and
 // jobs), contiguous and on the device. The launches run on `stream`.
 //
-// Forward. params: every layer's W^T (in, out) and bias, q first, then p_z,
-// then dynamics; meta: int32 {din, dout, w_off, b_off, 0, dout} per layer
-// in that order (kernels/rollout.py `pack_layout` for one rank). y0 (B, ny),
-// hxz (K, B, nh_inf), eps (K, B, nz); outputs ys, res (K, B, ny), qpar,
-// ppar (K, B, 2 nz), zs (K, B, nz), stash_p / stash_d (K, B, sum of the
-// hidden widths). rows_per_block is 4, 8 or 16; hmax is the widest layer
-// output. Returns the launch's cudaError_t (0 on success).
+// Forward. params: every rank's slice of every layer's W^T (in, out) and
+// bias, q first, then p_z, then dynamics, packed by kernels/rollout.py;
+// meta: int32 {din, width, w_off, b_off, c0, dout} per (layer, rank) in that
+// order. y0 (B, ny), hxz (K, B, nh_inf), eps (K, B, nz); outputs ys, res
+// (K, B, ny), qpar, ppar (K, B, 2 nz), zs (K, B, nz), stash_p / stash_d (K,
+// B, sum of the hidden widths). hmax is the widest layer output; rows (R)
+// is 4, 8, 12 or 16; C (blocks a cluster) 1, 2, 4, 8 or 16. Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int srvp_train_rollout_fwd(
     const void* params, const void* meta, int n_pz, int n_dyn,
     const void* y0, const void* hxz, const void* eps, void* ys, void* res,
     void* qpar, void* ppar, void* zs, void* stash_p, void* stash_d, int B,
-    int ny, int nz, int nh_inf, int K, int o, int hmax, int rows_per_block,
+    int ny, int nz, int nh_inf, int K, int o, int hmax, int rows, int C,
     void* stream) {
   const float* p = CF(params);
   const int* m = static_cast<const int*>(meta);
@@ -619,14 +692,30 @@ extern "C" int srvp_train_rollout_fwd(
 #define LAUNCH_FWD(R)                                                        \
   launch_fwd<R>(p, m, n_pz, n_dyn, CF(y0), CF(hxz), CF(eps), F(ys), F(res), \
                 F(qpar), F(ppar), F(zs), F(stash_p), F(stash_d), B, ny, nz, \
-                nh_inf, K, o, hmax, s)
-  switch (rows_per_block) {
+                nh_inf, K, o, hmax, C, s)
+  switch (rows) {
     case 4: return LAUNCH_FWD(4);
     case 8: return LAUNCH_FWD(8);
+    case 12: return LAUNCH_FWD(12);
     case 16: return LAUNCH_FWD(16);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LAUNCH_FWD
+}
+
+// Clusters of the forward (C blocks of `rows` rows, shared memory for ny,
+// nz, nh_inf and hmax) that the card holds at once, in *n; 0 if they cannot
+// be scheduled. Returns a cudaError_t.
+extern "C" int srvp_train_rollout_fwd_clusters(int ny, int nz, int nh_inf,
+                                               int hmax, int rows, int C,
+                                               int* n) {
+  switch (rows) {
+    case 4: return fwd_clusters<4>(ny, nz, nh_inf, hmax, C, n);
+    case 8: return fwd_clusters<8>(ny, nz, nh_inf, hmax, C, n);
+    case 12: return fwd_clusters<12>(ny, nz, nh_inf, hmax, C, n);
+    case 16: return fwd_clusters<16>(ny, nz, nh_inf, hmax, C, n);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Backward carry pass. params: every rank's slice of the same layers with

@@ -12,17 +12,16 @@
 // through shared memory, so narrow layers (20 or 40 outputs) keep all
 // threads busy. Accumulation is plain fp32 FMA (no TF32).
 //
-// Column split across a thread-block cluster. A block computes one slice of
-// a layer's output columns: the whole layer (`dense`, one block a tile) or,
-// in a cluster of C blocks sharing one tile, the columns [c0, c0 + width)
-// that its rank owns (`dense_slice`). The wrappers pack each rank's slice of
-// W as its own (din, width) row-major matrix, so a rank reads only 1/C of
-// the weights. What a block does with its outputs is the epilogue's call:
-// store them in its own shared memory (`LocalStore`), write them into the
-// shared memory of every rank of the cluster through distributed shared
-// memory (`PushAll`), or mask and store them elsewhere (the carry pass).
-// The epilogue gets 4 rows of one column at a time, a float4 of the
-// [feature][R] layout.
+// Column split across a thread-block cluster. In a cluster of C blocks
+// sharing one tile, a block computes the columns [c0, c0 + width) of a
+// layer that its rank owns (`dense_slice`; C = 1: the whole layer). The
+// wrappers pack each rank's slice of W as its own (din, width) row-major
+// matrix, so a rank reads only 1/C of the weights. What a block does with
+// its outputs is the epilogue's call: write them into the shared memory of
+// every rank of the cluster through distributed shared memory (`PushAll`),
+// or store them to device memory as well or instead (the training
+// kernels). The epilogue gets 4 rows of one column at a time, a float4 of
+// the [feature][R] layout.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -178,18 +177,6 @@ __device__ void dense_cols(const float* __restrict__ W,
   }
 }
 
-// Stores a layer's output columns [c0, c0 + width) into this block's
-// [feature][R] buffer, ReLU first when relu.
-template <int R>
-struct LocalStore {
-  float* dst;
-  int c0;
-  bool relu;
-  __device__ void operator()(int j, int r0, float4 v) const {
-    *reinterpret_cast<float4*>(dst + (c0 + j) * R + r0) = relu ? relu4(v) : v;
-  }
-};
-
 // Writes a layer's output columns [c0, c0 + width) into the same
 // [feature][R] buffer of every block of the cluster (distributed shared
 // memory), ReLU first when relu. The writes are visible to the other ranks
@@ -246,19 +233,6 @@ __device__ void dense_slice(const float* __restrict__ params, const int* m,
 template <int R>
 constexpr int row_tile(bool split) {
   return split ? kRowTile : R;
-}
-
-// The whole layer in one block, each thread's tile all R rows: meta = {din,
-// dout, w_off, b_off} with W (din, dout) row-major; hout[j][r] = b[j] +
-// sum_k hin[k][r] W[k][j], then ReLU when relu_out. `red` holds
-// 4 * kThreads * R floats. Ends with the block synchronised.
-template <int R>
-__device__ void dense(const float* __restrict__ params,
-                      const int* __restrict__ meta, const float* hin,
-                      float* hout, bool relu_out, float* red) {
-  const int m[kMeta] = {meta[0], meta[1], meta[2], meta[3], 0, meta[1]};
-  dense_slice<R, R>(params, m, hin, red, LocalStore<R>{hout, 0, relu_out});
-  __syncthreads();
 }
 
 // Barrier of the blocks that share a tile: the cluster's, or the block's

@@ -103,8 +103,11 @@ def load_library():
                      "srvp_train_rollout_bwd_clusters"):
             getattr(lib, name).argtypes = [i] * 5 + [p]
             getattr(lib, name).restype = i
+        # (ny, nz, nh_inf, hmax, rows, C, int* clusters)
+        lib.srvp_train_rollout_fwd_clusters.argtypes = [i] * 6 + [p]
+        lib.srvp_train_rollout_fwd_clusters.restype = i
         lib.srvp_train_rollout_fwd.argtypes = [p, p, i, i] + [p] * 10 \
-            + [i] * 8 + [p]
+            + [i] * 9 + [p]
         lib.srvp_train_rollout_fwd.restype = i
         lib.srvp_train_rollout_bwd.argtypes = [p, p, i, i] + [p] * 14 \
             + [i] * 9 + [p]

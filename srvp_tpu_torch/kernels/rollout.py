@@ -33,6 +33,7 @@ launches = 0
 N_SMS = 132                 # the H100's SMs: a wave is one block an SM
 SMEM_LIMIT = 232448         # shared memory a block can have (227 KB)
 THREADS = 512               # threads a block (tile_mlp.cuh kThreads)
+ONE_BLOCK_SMEM = 116 * 1024  # shared memory asked for at least (kOneBlockSmem)
 ROWS = (4, 8, 12, 16)       # rows a tile (multiples of 4: 16-byte row loads)
 CLUSTERS = (16, 8, 4, 2, 1)  # blocks a cluster (16 is non-portable)
 

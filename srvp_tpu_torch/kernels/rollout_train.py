@@ -12,18 +12,19 @@ the other o - 1:
     p_k = p_z(y_k);   r_k = dt * dynamics([y_k, z_k]);   y_{k+1} = y_k + r_k
 
 and the outputs are ys (y_1..y_K), res (r_k), q, p and z per substep. The
-kernels (csrc/rollout_train.cu) are one forward launch (one block a tile of
-rows, `_rows`) and two backward launches: a reverse-time carry pass on the
-prior rollout's cluster design (kernels/rollout.py `cluster_plan`: a
-thread-block cluster splits each layer's columns across its SMs), then a
-weight-gradient pass that owns each tile of each dW (deterministic, no
-atomics). At the flagship widths a row does 1,120,256 multiply-adds per
-substep, so B=128, K=14 is 4.0 GFLOP forward and about twice that backward:
-arithmetic-bound on the H100's fp32 cores. eps is noise: it gets no
-gradient.
+kernels (csrc/rollout_train.cu) are one forward launch and two backward
+launches: the forward and a reverse-time carry pass on the prior rollout's
+cluster design (kernels/rollout.py `cluster_plan`: a thread-block cluster
+shares a tile of rows and splits each layer's columns across its SMs; the
+plans are `fwd_plan` and `bwd_plan`), then a weight-gradient pass that owns
+each tile of each dW (deterministic, no atomics). At the flagship widths a
+row does 1,120,256 multiply-adds per substep, so B=128, K=14 is 4.0 GFLOP
+forward and about twice that backward: arithmetic-bound on the H100's fp32
+cores. eps is noise: it gets no gradient.
 
 `train_rollout` runs `TrainRollout` (the kernels) for CUDA tensors and
-`train_rollout_reference` for CPU tensors; it raises for anything else.
+`train_rollout_reference` for CPU tensors, `train_rollout_forward` the
+forward alone with its stashes; both raise for any other device.
 """
 
 import functools
@@ -31,8 +32,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from srvp_tpu_torch.kernels.rollout import (N_SMS, SMEM_LIMIT, THREADS,
-                                            _check, _lib, _mlp,
+from srvp_tpu_torch.kernels.rollout import (ONE_BLOCK_SMEM, THREADS,
+                                            _check, _lib,
                                             check_schedulable, cluster_plan,
                                             max_clusters, pack)
 from srvp_tpu_torch.ops.dists import rsample
@@ -47,41 +48,71 @@ bwd_launches = 0
 bwd_events = None
 
 
+def _mlp_stash(layers, h):
+    """_mlp, and the pre-activations of its hidden layers side by side."""
+    pre = []
+    for il, (w, b) in enumerate(layers):
+        if il > 0:
+            pre.append(h)
+            h = torch.relu(h)
+        h = F.linear(h, w, b)
+    return h, pre
+
+
 def train_rollout_reference(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
-                            oversampling=1):
+                            oversampling=1, stash=False):
     """Plain PyTorch training rollout, differentiable by autograd.
 
     q_layer: (weight (2nz, nh_inf), bias) of q_z; pz_layers / dyn_layers:
     [(weight (out, in), bias)]. y0 (B, ny); hxz (K, B, nh_inf) the z-LSTM
     output of each substep's frame; eps (K, B, nz), of which only the first
     substep of each frame is read. Returns (ys, res (K, B, ny), q_par, p_par
-    (K, B, 2nz), zs (K, B, nz)).
+    (K, B, 2nz), zs (K, B, nz)); with `stash`, also the hidden layers'
+    pre-activations of p_z and of the dynamics, (K, B, sum of the hidden
+    widths) each, as the forward kernel stashes them.
     """
     dt = 1.0 / oversampling
     y, z = y0, None
-    outs = [[] for _ in range(5)]
+    outs = [[] for _ in range(7 if stash else 5)]
     for k in range(eps.shape[0]):
         q_par = F.linear(hxz[k], *q_layer)
         if k % oversampling == 0:
             z = rsample(q_par, eps[k])
-        p_par = _mlp(pz_layers, y)
-        r = dt * _mlp(dyn_layers, torch.cat([y, z], dim=-1))
+        p_par, pre_p = _mlp_stash(pz_layers, y)
+        r, pre_d = _mlp_stash(dyn_layers, torch.cat([y, z], dim=-1))
+        r = dt * r
         y = y + r
-        for lst, v in zip(outs, (y, r, q_par, p_par, z)):
+        vals = [y, r, q_par, p_par, z]
+        if stash:
+            vals += [torch.cat(pre, -1) if pre
+                     else y0.new_zeros((y0.shape[0], 0))
+                     for pre in (pre_p, pre_d)]
+        for lst, v in zip(outs, vals):
             lst.append(v)
     return tuple(torch.stack(v) for v in outs)
 
 
-def _rows(bsz, ny, nz, nh_inf, hmax):
-    """The forward's rows per block (one block a tile): the fewest of 4, 8
-    and 16 that fit the grid in one wave over the SMs, halved until a tile
-    of the larger of the forward's and the carry pass's buffers fits."""
-    floats = ny + nz + max(nh_inf, 2 * ny + nz) + 2 * nz + 2 * hmax \
-        + 4 * THREADS
-    rows = next((r for r in (4, 8, 16) if -(-bsz // r) <= N_SMS), 16)
-    while rows > 4 and 4 * rows * floats > SMEM_LIMIT:
-        rows //= 2
-    return rows
+def fwd_smem_bytes(rows, ny, nz, nh_inf, hmax):
+    """Shared memory of the forward at `rows` rows a tile: y and z, the hxz
+    tile, q, two buffers of the widest layer output, the partial sums; at
+    least ONE_BLOCK_SMEM, as the kernel asks for."""
+    return max(ONE_BLOCK_SMEM, 4 * rows * (ny + nz + nh_inf + 2 * nz
+                                           + 2 * hmax + 4 * THREADS))
+
+
+def fwd_plan(bsz, ny, nz, nh_inf, hmax, device):
+    """The forward's launch plan on `device` (rollout.cluster_plan, with the
+    clusters the card holds at once)."""
+    query = _lib().srvp_train_rollout_fwd_clusters
+    return cluster_plan(
+        bsz, lambda r: fwd_smem_bytes(r, ny, nz, nh_inf, hmax),
+        lambda r, c: max_clusters(query, (ny, nz, nh_inf, hmax), r, c,
+                                  device))
+
+
+def fwd_hmax(layers):
+    """The forward's widest layer output."""
+    return max(w.shape[0] for w, _ in layers)
 
 
 def bwd_smem_bytes(rows, ny, nz, hmax):
@@ -114,47 +145,57 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _forward(layers, n_pz, y0, hxz, eps, oversampling, plan):
+    """Launches the forward kernel on checked, contiguous CUDA tensors with
+    `plan` (None: fwd_plan's); returns the five outputs and the two
+    stashes."""
+    global fwd_launches
+    n_steps, bsz, nh_inf = hxz.shape
+    ny, nz = y0.shape[1], eps.shape[2]
+    device = y0.device
+    lib = _lib()
+    hmax = fwd_hmax(layers)
+    plan = plan or fwd_plan(bsz, ny, nz, nh_inf, hmax, device)
+    check_schedulable(lib.srvp_train_rollout_fwd_clusters,
+                      (ny, nz, nh_inf, hmax), plan, device)
+    params, meta = pack(layers, plan.cluster, True, True)
+    sw_p = sum(w.shape[0] for w, _ in layers[1:n_pz])
+    sw_d = sum(w.shape[0] for w, _ in layers[1 + n_pz:-1])
+    new = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
+    outs = (new(n_steps, bsz, ny), new(n_steps, bsz, ny),
+            new(n_steps, bsz, 2 * nz), new(n_steps, bsz, 2 * nz),
+            new(n_steps, bsz, nz), new(n_steps, bsz, sw_p),
+            new(n_steps, bsz, sw_d))
+    with torch.cuda.device(device):
+        err = lib.srvp_train_rollout_fwd(
+            params.data_ptr(), meta.data_ptr(), n_pz, len(layers) - 1 - n_pz,
+            y0.data_ptr(), hxz.data_ptr(), eps.data_ptr(),
+            *[t.data_ptr() for t in outs], bsz, ny, nz, nh_inf, n_steps,
+            oversampling, hmax, plan.rows, plan.cluster, _stream(device))
+    if err != 0:
+        raise RuntimeError(
+            f"srvp_train_rollout_fwd launch failed: cudaError {err}")
+    fwd_launches += 1
+    return outs
+
+
 class TrainRollout(torch.autograd.Function):
     """The rollout through the CUDA kernels, with their backward.
 
-    apply(oversampling, n_pz, plan, y0, hxz, eps, q_w, q_b, *pz (w, b),
-    *dyn (w, b)) -> (ys, res, q_par, p_par, zs), as train_rollout_reference;
-    plan: the carry pass's (None: bwd_plan's). Weight gradients come back in
-    nn.Linear's (out, in) layout.
+    apply(oversampling, n_pz, fwd_plan, bwd_plan, y0, hxz, eps, q_w, q_b,
+    *pz (w, b), *dyn (w, b)) -> (ys, res, q_par, p_par, zs), as
+    train_rollout_reference; fwd_plan / bwd_plan: the forward's and the
+    carry pass's plans (None: fwd_plan's / bwd_plan's). Weight gradients
+    come back in nn.Linear's (out, in) layout.
     """
 
     @staticmethod
-    def forward(ctx, oversampling, n_pz, plan, y0, hxz, eps, *flat):
-        global fwd_launches
+    def forward(ctx, oversampling, n_pz, fwd_plan, bwd_plan, y0, hxz, eps,
+                *flat):
         q_layer, pz, dyn = _layers(flat, n_pz)
-        layers = [q_layer] + pz + dyn
-        n_steps, bsz, nh_inf = hxz.shape
-        ny, nz = y0.shape[1], eps.shape[2]
-        device = y0.device
-        params, meta_t = pack(layers, 1, True, True)
-        hmax = max(w.shape[0] for w, _ in layers)
-        sw_p = sum(w.shape[0] for w, _ in pz[:-1])
-        sw_d = sum(w.shape[0] for w, _ in dyn[:-1])
-        new = lambda *shape: torch.empty(shape, device=device)  # noqa: E731
-        ys, res = new(n_steps, bsz, ny), new(n_steps, bsz, ny)
-        q_par, p_par = new(n_steps, bsz, 2 * nz), new(n_steps, bsz, 2 * nz)
-        zs = new(n_steps, bsz, nz)
-        stash_p, stash_d = new(n_steps, bsz, sw_p), new(n_steps, bsz, sw_d)
-        rows = _rows(bsz, ny, nz, nh_inf,
-                     max(hmax, max(w.shape[1] for w, _ in layers)))
-        with torch.cuda.device(device):
-            err = _lib().srvp_train_rollout_fwd(
-                params.data_ptr(), meta_t.data_ptr(), len(pz), len(dyn),
-                y0.data_ptr(), hxz.data_ptr(), eps.data_ptr(), ys.data_ptr(),
-                res.data_ptr(), q_par.data_ptr(), p_par.data_ptr(),
-                zs.data_ptr(), stash_p.data_ptr(), stash_d.data_ptr(), bsz, ny,
-                nz, nh_inf, n_steps, oversampling, hmax, rows,
-                _stream(device))
-        if err != 0:
-            raise RuntimeError(
-                f"srvp_train_rollout_fwd launch failed: cudaError {err}")
-        fwd_launches += 1
-        ctx.oversampling, ctx.n_pz, ctx.plan = oversampling, n_pz, plan
+        ys, res, q_par, p_par, zs, stash_p, stash_d = _forward(
+            [q_layer] + pz + dyn, n_pz, y0, hxz, eps, oversampling, fwd_plan)
+        ctx.oversampling, ctx.n_pz, ctx.plan = oversampling, n_pz, bwd_plan
         ctx.save_for_backward(y0, hxz, eps, ys, q_par, zs, stash_p, stash_d,
                               *flat)
         return ys, res, q_par, p_par, zs
@@ -235,7 +276,7 @@ class TrainRollout(torch.autograd.Function):
         mark("end")
         if events is not None:
             bwd_events.append(events)
-        return (None, None, None, g_y0, g_hxz, None, *views)
+        return (None, None, None, None, g_y0, g_hxz, None, *views)
 
 
 _TILE = 64
@@ -286,20 +327,9 @@ def _wgrad_table(shapes, n_pz, ny, nz, nh_inf, device):
     return jobs, tuple(sizes), off, tile0
 
 
-def train_rollout(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
-                  oversampling=1, plan=None):
-    """Training rollout; same arguments and results as
-    train_rollout_reference, differentiable in the weights, y0 and hxz.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernels,
-    the carry pass with `plan` (a rollout.Plan; by default bwd_plan's). The
-    backward raises if the card cannot schedule the plan's cluster.
-    """
-    if y0.device.type == "cpu":
-        return train_rollout_reference(q_layer, pz_layers, dyn_layers, y0,
-                                       hxz, eps, oversampling)
-    if y0.device.type != "cuda":
-        raise ValueError(f"train_rollout: unsupported device {y0.device}")
+def _check_inputs(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
+                  oversampling):
+    """Raises unless the CUDA tensors fit the kernels."""
     device = y0.device
     n_steps, bsz, nh_inf = hxz.shape
     ny, nz = y0.shape[1], eps.shape[-1]
@@ -322,7 +352,50 @@ def train_rollout(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
         raise ValueError(f"train_rollout: oversampling {oversampling} < 1")
     if n_steps == 0 or bsz == 0:
         raise ValueError("train_rollout: needs at least one substep and row")
-    flat = [t for w, b in layers for t in (w, b)]
-    return TrainRollout.apply(oversampling, len(pz_layers), plan,
-                              y0.contiguous(),
-                              hxz.contiguous(), eps.contiguous(), *flat)
+
+
+def _route(y0):
+    """True for the kernels (CUDA tensors), False for the plain version (CPU
+    tensors); raises for any other device."""
+    if y0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"train_rollout: unsupported device {y0.device}")
+    return y0.device.type == "cuda"
+
+
+def train_rollout(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
+                  oversampling=1, fwd_plan=None, bwd_plan=None):
+    """Training rollout; same arguments and results as
+    train_rollout_reference, differentiable in the weights, y0 and hxz.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels,
+    the forward with `fwd_plan` and the carry pass with `bwd_plan` (each a
+    rollout.Plan; by default fwd_plan's and bwd_plan's). Each raises if the
+    card cannot schedule its plan's cluster.
+    """
+    if not _route(y0):
+        return train_rollout_reference(q_layer, pz_layers, dyn_layers, y0,
+                                       hxz, eps, oversampling)
+    _check_inputs(q_layer, pz_layers, dyn_layers, y0, hxz, eps, oversampling)
+    flat = [t for w, b in [q_layer, *pz_layers, *dyn_layers] for t in (w, b)]
+    return TrainRollout.apply(oversampling, len(pz_layers), fwd_plan,
+                              bwd_plan, y0.contiguous(), hxz.contiguous(),
+                              eps.contiguous(), *flat)
+
+
+def train_rollout_forward(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
+                          oversampling=1, plan=None):
+    """The forward alone, without autograd: train_rollout's five outputs and
+    the stashed pre-activations, as train_rollout_reference(..., stash=True)
+    returns them. CPU tensors take the plain version; CUDA tensors launch
+    the forward kernel with `plan` (by default fwd_plan's), which raises if
+    the card cannot schedule its cluster."""
+    with torch.no_grad():
+        if not _route(y0):
+            return train_rollout_reference(q_layer, pz_layers, dyn_layers,
+                                           y0, hxz, eps, oversampling, True)
+        _check_inputs(q_layer, pz_layers, dyn_layers, y0, hxz, eps,
+                      oversampling)
+        layers = [q_layer] + list(pz_layers) + list(dyn_layers)
+        return _forward(layers, len(pz_layers), y0.contiguous(),
+                        hxz.contiguous(), eps.contiguous(), oversampling,
+                        plan)

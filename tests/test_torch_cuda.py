@@ -118,7 +118,7 @@ def _train_layers(cuda, nh_inf, nh, ny, nz):
 
 
 @pytest.mark.parametrize("bsz,n_steps,o,ny,nz,nh_inf,nh,plan", [
-    (128, 14, 1, 20, 20, 256, 512, None),   # the training step (C = 16)
+    (128, 14, 1, 20, 20, 256, 512, None),   # the training step (C = 8)
     (100, 38, 2, 50, 50, 256, 512, None),   # the KTH training step
     (37, 10, 2, 20, 12, 24, 64, None),      # reused z, ny != nz
     (130, 6, 3, 7, 5, 30, 30, None),        # widths not multiples of 4
@@ -130,6 +130,9 @@ def _train_layers(cuda, nh_inf, nh, ny, nz):
 ])
 def test_train_kernels_match_plain(cuda, bsz, n_steps, o, ny, nz, nh_inf,
                                    nh, plan):
+    """The forward and the carry pass at `plan` (both; None: each pass's
+    own planner): outputs, stashed pre-activations and gradients against
+    the plain version, the same bits on a second launch."""
     torch.manual_seed(0)
     q, pz, dyn = _train_layers(cuda, nh_inf, nh, ny, nz)
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -137,7 +140,8 @@ def test_train_kernels_match_plain(cuda, bsz, n_steps, o, ny, nz, nh_inf,
     y0, hxz, eps, _ = parity.kink_free_inputs(q, pz, dyn, bsz, n_steps, o,
                                               gen, margin)
     flat = [t.detach() for w, b in [q, *pz, *dyn] for t in (w, b)]
-    kernel = functools.partial(krt.train_rollout, plan=plan)
+    kernel = functools.partial(krt.train_rollout, fwd_plan=plan,
+                               bwd_plan=plan)
     runs = []
     for fn, dtype in ((kernel, torch.float32), (kernel, torch.float32),
                       (krt.train_rollout_reference, torch.float32),
@@ -153,17 +157,54 @@ def test_train_kernels_match_plain(cuda, bsz, n_steps, o, ny, nz, nh_inf,
         if fn is kernel:
             assert (krt.fwd_launches, krt.bwd_launches) == (
                 before[0] + 1, before[1] + 2)
+    # the forward alone, with its stashes: twice on the kernel, then the
+    # plain version in float32 and float64
+    stashed = [krt.train_rollout_forward(q, pz, dyn, y0, hxz, eps, o, plan)
+               for _ in range(2)]
+    for dtype in (torch.float32, torch.float64):
+        lv = [t.to(dtype) for t in flat]
+        pairs = [(lv[i], lv[i + 1]) for i in range(0, len(lv), 2)]
+        stashed.append(krt.train_rollout_reference(
+            pairs[0], pairs[1:5], pairs[5:], y0.to(dtype), hxz.to(dtype),
+            eps.to(dtype), o, stash=True))
     torch.cuda.synchronize()
-    # a second launch gives the same bits
-    for a, b in zip(runs[0][1], runs[1][1]):
+    # a second launch gives the same bits, forward (outputs and stashes)
+    # and backward
+    for a, b in zip(runs[0][0] + runs[0][1] + stashed[0],
+                    runs[1][0] + runs[1][1] + stashed[1]):
+        assert _bits_equal(a, b)
+    for a, b in zip(runs[0][0], stashed[0]):
         assert _bits_equal(a, b)
     # each element within the tolerance of the fp32 plain result, or no
     # farther from the float64 one than that is (parity.agreement)
-    for part, rtol, atol in ((0, 2e-5, 1e-6), (1, 5e-4, 5e-6)):
-        for i, (a, b, c) in enumerate(zip(*(r[part] for r in runs[1:]))):
+    for results, rtol, atol in (([r[0] for r in runs[1:]], 2e-5, 1e-6),
+                                (stashed[1:], 2e-5, 1e-6),
+                                ([r[1] for r in runs[1:]], 5e-4, 5e-6)):
+        for i, (a, b, c) in enumerate(zip(*results)):
             assert torch.isfinite(a).all()
             worst = parity.agreement(a, b, c, rtol, atol)[1]
-            assert worst <= 1.0, (part, i, worst)
+            assert worst <= 1.0, (rtol, i, worst)
+
+
+def test_train_unschedulable_plan_raises(cuda):
+    """A forward or carry-pass cluster the card cannot hold (32 blocks,
+    past Hopper's 16) raises before that pass launches; the plan is never
+    quietly replaced."""
+    q, pz, dyn = _train_layers(cuda, 6, 8, 4, 3)
+    y0 = torch.randn(8, 4, device=cuda, requires_grad=True)
+    hxz = torch.randn(3, 8, 6, device=cuda)
+    eps = torch.randn(3, 8, 3, device=cuda)
+    bad = P(4, 32, 2)
+    before = (krt.fwd_launches, krt.bwd_launches)
+    with pytest.raises(RuntimeError):
+        krt.train_rollout(q, pz, dyn, y0, hxz, eps, 1, fwd_plan=bad)
+    with pytest.raises(RuntimeError):
+        krt.train_rollout_forward(q, pz, dyn, y0, hxz, eps, 1, bad)
+    assert (krt.fwd_launches, krt.bwd_launches) == before
+    outs = krt.train_rollout(q, pz, dyn, y0, hxz, eps, 1, bwd_plan=bad)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(parity.rollout_loss(outs), [y0])
+    assert (krt.fwd_launches, krt.bwd_launches) == (before[0] + 1, before[1])
 
 
 def test_train_kernels_reject_bad_inputs(cuda):

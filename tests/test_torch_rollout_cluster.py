@@ -1,5 +1,5 @@
-"""The cluster design of the latent-rollout kernels 1 and 3 (carry pass),
-checked on the CPU.
+"""The cluster design of the latent-rollout kernels 1, 2 and 3 (carry
+pass), checked on the CPU.
 
 The kernels (csrc/rollout.cu, csrc/rollout_train.cu) split every layer's
 output columns across the C blocks of a thread-block cluster: each rank
@@ -10,7 +10,11 @@ column-split schedule is emulated in numpy, rank by rank, reading the
 weights from the wrapper's packed buffer through its meta rows. The
 emulated prior rollout is held at rtol 1e-4 / atol 1e-5 (tests/
 test_pallas.py) against `prior_rollout_reference` and JAX's
-`prior_rollout_fused(..., interpret=True)`; the emulated carry pass, with
+`prior_rollout_fused(..., interpret=True)`; the emulated training forward,
+its five outputs and its stashes held at rtol 2e-5 / atol 1e-6
+(tests/test_torch_train_rollout.py) against `train_rollout_reference` (the
+stashes against its hidden pre-activations) and the outputs against JAX's
+`make_train_rollout(..., interpret=True)`; the emulated carry pass, with
 the weight gradients summed from the G buffers it writes by the wrapper's
 job table, at rtol 5e-4 / atol 5e-6 (tests/test_pallas_train.py) against
 autograd of `train_rollout_reference` and JAX's `make_train_rollout(...,
@@ -19,6 +23,7 @@ multiples of 4 C (30, 6, 2 nz = 8), so ranks get narrow, ragged or empty
 slices."""
 
 import contextlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -34,6 +39,7 @@ from srvp_tpu_torch.kernels import rollout_train as krt
 from tests.torch_port_util import ROLLOUT_ATOL, ROLLOUT_RTOL
 
 GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-6
+FWD_RTOL, FWD_ATOL = 2e-5, 1e-6
 NY, NZ, NH, NH_INF, NLAYERS = 6, 4, 30, 10, 3
 BSZ, O, NT = 7, 2, 3
 N_STEPS = O * (NT - 1)
@@ -116,6 +122,89 @@ def test_unschedulable_plan_raises(monkeypatch):
     assert kr.max_clusters(query, (1, 2, 3), 4, 8, dev) == 3
     with pytest.raises(RuntimeError, match="cannot be scheduled"):
         kr.check_schedulable(query, (1, 2, 3), kr.Plan(4, 16, 1), dev)
+
+
+def _fake_cuda(monkeypatch):
+    """Stand-ins for the card around the wrappers' occupancy query: device
+    7, no device switch, a fresh cache of the query's answers."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "card")
+    monkeypatch.setattr(kr, "_max_clusters", {})
+    return torch.device("cuda", 7)
+
+
+def _fake_query(resident, asked):
+    """A stand-in for the library's srvp_train_rollout_fwd_clusters that
+    answers resident[C] and records its arguments in `asked`."""
+    def query(ny, nz, nh_inf, hmax, rows, cluster, n):
+        asked.append((ny, nz, nh_inf, hmax, rows, cluster))
+        n._obj.value = resident.get(cluster, 0)
+        return 0
+    query.__name__ = "fake_fwd_clusters"
+    return query
+
+
+@pytest.mark.parametrize("bsz,ny,plan", [(128, 20, kr.Plan(12, 8, 11)),
+                                         (100, 50, kr.Plan(8, 8, 13)),
+                                         (1600, 20, kr.Plan(16, 1, 100))])
+def test_fwd_plan_examples(monkeypatch, bsz, ny, plan):
+    """The forward's plan at the training steps' batches (dcgan B = 128,
+    KTH B = 100) with the H100's cluster occupancy (15 clusters of 8), and
+    a batch past one wave; the card is asked with the forward's widths."""
+    dev = _fake_cuda(monkeypatch)
+    asked = []
+    monkeypatch.setattr(krt, "_lib", lambda: SimpleNamespace(
+        srvp_train_rollout_fwd_clusters=_fake_query(H100_CLUSTERS, asked)))
+    assert krt.fwd_plan(bsz, ny, ny, 256, 512, dev) == plan
+    assert asked and all(a[:4] == (ny, ny, 256, 512) for a in asked)
+    # every plan asks for at least the shared memory of one block an SM
+    assert krt.fwd_smem_bytes(4, 20, 20, 256, 512) == kr.ONE_BLOCK_SMEM
+    assert krt.fwd_smem_bytes(12, 20, 20, 256, 512) == 48 * 3408
+    assert krt.fwd_smem_bytes(16, 50, 50, 256, 512) <= kr.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("cluster,schedulable", [(8, True), (16, False)])
+def test_fwd_unschedulable_plan_raises(monkeypatch, cluster, schedulable):
+    """The forward's wrapper asks the card for its plan's cluster before
+    the launch: a plan it holds none of raises and launches nothing; one it
+    holds is launched as given (the C entry's arguments in its order)."""
+    dev = _fake_cuda(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: dev.index)
+    launched = []
+
+    def launch(*args):
+        launched.append(args)
+        return 0
+    asked = []
+    monkeypatch.setattr(krt, "_lib", lambda: SimpleNamespace(
+        srvp_train_rollout_fwd_clusters=_fake_query({8: 15, 16: 0}, asked),
+        srvp_train_rollout_fwd=launch))
+    monkeypatch.setattr(krt, "_stream", lambda device: 0)
+    gen = torch.Generator().manual_seed(0)
+    dims = [(NH_INF, 2 * NZ), (NY, NH), (NH, 2 * NZ), (NY + NZ, NH),
+            (NH, NY)]
+    layers = [(torch.randn(o, i, generator=gen), torch.randn(o, generator=gen))
+              for i, o in dims]
+    y0, hxz, eps = (torch.randn(*shape, generator=gen) for shape in
+                    ((BSZ, NY), (3, BSZ, NH_INF), (3, BSZ, NZ)))
+    plan = kr.Plan(4, cluster, 2)
+    before = krt.fwd_launches
+    if not schedulable:
+        with pytest.raises(RuntimeError, match="cannot be scheduled"):
+            krt._forward(layers, 2, y0, hxz, eps, 1, plan)
+        assert not launched and krt.fwd_launches == before
+        return
+    outs = krt._forward(layers, 2, y0, hxz, eps, 1, plan)
+    assert krt.fwd_launches == before + 1
+    (args,) = launched
+    assert len(args) == 24
+    assert args[2:4] == (2, 2)                          # n_pz, n_dyn
+    assert args[14:] == (BSZ, NY, NZ, NH_INF, 3, 1, NH, 4, cluster, 0)
+    assert [o.shape for o in outs] == [
+        (3, BSZ, NY), (3, BSZ, NY), (3, BSZ, 2 * NZ), (3, BSZ, 2 * NZ),
+        (3, BSZ, NZ), (3, BSZ, NH), (3, BSZ, NH)]
+    assert list(args[7:14]) == [o.data_ptr() for o in outs]
 
 
 # -- column slices and the packed layout -------------------------------------
@@ -237,6 +326,90 @@ def emulate_prior(pz, dyn, y0, eps, n_ranks, rows):
                 np.testing.assert_array_equal(yz[c], yz[0])
             out[t, sl] = yz[0][:n, :NY]
     return out
+
+
+def emulate_train_forward(q, pz, dyn, y0, hxz, eps, n_ranks, rows,
+                          oversampling=O):
+    """csrc/rollout_train.cu's forward on tiles of `rows` rows: each rank
+    computes its columns of every layer from its packed slice and its own
+    copy of the layer's input; the owner of a column stores it (q, p and
+    the hidden pre-activations, each element once), rank 0 stores z, y and
+    the residual. q reaches the other ranks only on the substeps that draw
+    z from it; p_z's last layer reaches none. Returns (ys, res, q_par,
+    p_par, zs, stash_p, stash_d)."""
+    layers = [q] + pz + dyn
+    n_pz, n_dyn = len(pz), len(dyn)
+    params, meta = kr.pack(layers, n_ranks, True, True)
+    params, meta = params.numpy(), meta.numpy()
+    rows_of = lambda first: meta[first * n_ranks:(first + 1) * n_ranks]  # noqa
+    k_steps, bsz = hxz.shape[:2]
+    dt = np.float32(1.0 / oversampling)
+    widths = (NY, NY, 2 * NZ, 2 * NZ, NZ,
+              sum(w.shape[0] for w, _ in pz[:-1]),
+              sum(w.shape[0] for w, _ in dyn[:-1]))
+    outs = [np.full((k_steps, bsz, w), np.nan, np.float32) for w in widths]
+    ys, res, q_par, p_par, zs, st_p, st_d = outs
+
+    def store(dst, cols, v):
+        """dst: the tile's valid rows of an output; every element once."""
+        assert np.all(np.isnan(dst[:, cols]))
+        dst[:, cols] = v[:dst.shape[0]]
+
+    def mlp(first, n, h, stash, out):
+        """mlp_fwd: a hidden layer's owner stashes its columns and pushes
+        their ReLU; the last layer is stored to `out` (not pushed), or
+        pushed when out is None."""
+        off = 0
+        for il in range(n):
+            ms = rows_of(first + il)
+            dout = int(ms[0][5])
+            dst = [np.empty((rows, dout), np.float32) for _ in range(n_ranks)]
+            if il < n - 1:
+                def epi(c0, j, v, off=off):
+                    store(stash, off + j, v)
+                    return np.maximum(v, 0)
+                off += dout
+            elif out is not None:
+                def epi(c0, j, v):
+                    store(out, j, v)
+                    return v
+            else:
+                epi = None
+            _cluster_dense(params, ms, h, dst, epi)
+            h = dst
+        return h
+
+    for row0 in range(0, bsz, rows):
+        sl = slice(row0, min(bsz, row0 + rows))
+        n = sl.stop - sl.start
+
+        def pad(a):
+            return np.concatenate([a, np.zeros((rows - n,) + a.shape[1:],
+                                               np.float32)])
+        yz = [np.concatenate([pad(y0[sl]), np.zeros((rows, NZ), np.float32)],
+                             1) for _ in range(n_ranks)]
+        for k in range(k_steps):
+            qb = [np.empty((rows, 2 * NZ), np.float32)
+                  for _ in range(n_ranks)]
+            _cluster_dense(params, rows_of(0), [pad(hxz[k][sl])] * n_ranks,
+                           qb, lambda c0, j, v: (store(q_par[k, sl], j, v),
+                                                 v)[1])
+            if k % oversampling == 0:
+                e = pad(eps[k][sl])
+                for c in range(n_ranks):
+                    sp = np.logaddexp(0, qb[c][:, NZ:]).astype(np.float32)
+                    yz[c][:, NY:] = qb[c][:, :NZ] + e * (sp + np.float32(1e-8))
+            zs[k, sl] = yz[0][:n, NY:]
+            mlp(1, n_pz, [a[:, :NY] for a in yz], st_p[k, sl], p_par[k, sl])
+            r = mlp(1 + n_pz, n_dyn, yz, st_d[k, sl], None)
+            for c in range(n_ranks):
+                yz[c][:, :NY] += dt * r[c]
+            for c in range(1, n_ranks):     # every rank holds the same tile
+                np.testing.assert_array_equal(yz[c], yz[0])
+            ys[k, sl] = yz[0][:n, :NY]
+            res[k, sl] = (dt * r[0])[:n]
+    assert not any(np.isnan(a).any() for a in outs)
+    return outs
 
 
 def emulate_train_backward(q, pz, dyn, y0, hxz, eps, cots, n_ranks, rows):
@@ -424,6 +597,78 @@ def case():
                 jax_grads=[np.asarray(g) for g in jax_grads])
 
 
+@pytest.fixture(scope="module", params=[1, 2], ids=["o=1", "o=2"])
+def fwd_case(request):
+    """The training forward's case at oversampling o: weights and draws
+    made with numpy at tiny widths (q 10 -> 8, MLPs of 30 hidden units: a
+    partial last column group, and ranks with no columns at 16 ranks), and
+    the JAX Pallas forward's outputs on them in interpret mode."""
+    o = request.param
+    n_steps = o * (NT - 1)
+    rng = np.random.RandomState(5)
+    q_p = _linear(rng, NH_INF, 2 * NZ)
+    pz_p = _mlp_params(rng, NY, 2 * NZ)
+    dyn_p = _mlp_params(rng, NY + NZ, NY)
+    y0 = (0.5 * rng.randn(BSZ, NY)).astype(np.float32)
+    hxz = rng.randn(n_steps, BSZ, NH_INF).astype(np.float32)
+    eps = rng.randn(n_steps, BSZ, NZ).astype(np.float32)
+    fused = make_train_rollout(NY, NZ, NH_INF, NH, n_steps, o,
+                               interpret=True)
+    outs = jax.jit(fused)(q_p, pz_p, dyn_p, y0, hxz, eps)
+    return dict(o=o, q=_torch_layer(q_p), pz=[_torch_layer(p) for p in pz_p],
+                dyn=[_torch_layer(p) for p in dyn_p], y0=y0, hxz=hxz,
+                eps=eps, jax=[np.asarray(a) for a in outs])
+
+
+@pytest.mark.parametrize("rows", [4, 12])
+@pytest.mark.parametrize("n_ranks", RANKS)
+def test_cluster_train_forward_matches_references(fwd_case, n_ranks, rows):
+    c = fwd_case
+    got = emulate_train_forward(c["q"], c["pz"], c["dyn"], c["y0"],
+                                c["hxz"], c["eps"], n_ranks, rows, c["o"])
+    ref = krt.train_rollout_reference(
+        c["q"], c["pz"], c["dyn"], torch.from_numpy(c["y0"]),
+        torch.from_numpy(c["hxz"]), torch.from_numpy(c["eps"]), c["o"],
+        stash=True)
+    names = ["ys", "res", "q", "p", "z", "stash_p", "stash_d"]
+    assert [a.shape for a in got] == [tuple(b.shape) for b in ref]
+    assert ref[5].shape[-1] == ref[6].shape[-1] == (NLAYERS - 1) * NH
+    for a, b, name in zip(got, ref, names):
+        np.testing.assert_allclose(a, b.detach().numpy(), rtol=FWD_RTOL,
+                                   atol=FWD_ATOL, err_msg=f"plain {name}")
+    for a, b, name in zip(got, c["jax"], names):
+        np.testing.assert_allclose(a, b, rtol=FWD_RTOL, atol=FWD_ATOL,
+                                   err_msg=f"jax {name}")
+
+
+def test_train_forward_stash_is_the_hidden_pre_activations(fwd_case):
+    """The plain version's stash, which the emulated kernel is held to:
+    each hidden layer's pre-activation at each substep's input state, the
+    layers side by side; its five outputs are train_rollout's."""
+    c = fwd_case
+    args = (c["q"], c["pz"], c["dyn"], torch.from_numpy(c["y0"]),
+            torch.from_numpy(c["hxz"]), torch.from_numpy(c["eps"]), c["o"])
+    with torch.no_grad():
+        outs = krt.train_rollout_reference(*args, stash=True)
+        plain = krt.train_rollout(*args)
+        fwd = krt.train_rollout_forward(*args)
+    for a, b in zip(outs, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(outs, fwd):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ys, zs = outs[0], outs[4]
+    y_in = torch.cat([torch.from_numpy(c["y0"])[None], ys[:-1]])
+    for mlp, h, stash in ((c["pz"], y_in, outs[5]),
+                          (c["dyn"], torch.cat([y_in, zs], -1), outs[6])):
+        pre = []
+        for il, (w, b) in enumerate(mlp[:-1]):
+            h = h @ w.T + b
+            pre.append(h)
+            h = torch.relu(h)
+        torch.testing.assert_close(stash, torch.cat(pre, -1), rtol=1e-6,
+                                   atol=1e-6)
+
+
 @pytest.mark.parametrize("n_ranks,rows", [(1, 4), (2, 8), (8, 4), (16, 8)])
 def test_cluster_prior_rollout_matches_references(case, n_ranks, rows):
     out = emulate_prior(case["pz"], case["dyn"], case["y0"], case["eps"],
@@ -472,3 +717,25 @@ def test_emulation_catches_a_wrong_slice(case, monkeypatch):
     monkeypatch.setattr(kr, "_packing", shifted)
     with pytest.raises(AssertionError):
         emulate_prior(case["pz"], case["dyn"], case["y0"], case["eps"], 8, 4)
+
+
+@pytest.mark.parametrize("n_ranks,row,shift", [
+    (2, 1, -4),     # q head, rank 1 stores over rank 0's columns
+    (8, 9, 4),      # p_z's first layer, rank 1 over rank 2's
+])
+def test_forward_emulation_catches_a_wrong_slice(fwd_case, monkeypatch,
+                                                  n_ranks, row, shift):
+    """As test_emulation_catches_a_wrong_slice, for the training forward:
+    one rank's column offset moved by a group of 4 fails it."""
+    real = kr._packing.__wrapped__
+
+    def shifted(*args):
+        index, meta = real(*args)
+        meta = meta.clone()
+        meta[row, 4] += shift
+        return index, meta
+    monkeypatch.setattr(kr, "_packing", shifted)
+    c = fwd_case
+    with pytest.raises(AssertionError):
+        emulate_train_forward(c["q"], c["pz"], c["dyn"], c["y0"], c["hxz"],
+                              c["eps"], n_ranks, 4, c["o"])
