@@ -30,7 +30,13 @@ Phases, each of which fails the script:
      excused and the worst gradient are printed); times of the forward, the
      backward and the plain version's, and the backward's carry pass,
      weight-gradient pass and the rest of its wrapper apart (CUDA events
-     the wrapper records), beside the bounds of each;
+     the wrapper records), beside the bounds of each; then the
+     weight-gradient pass alone on the inputs that backward gave it, at its
+     plan (S blocks a cluster sharing a tile's row sum, the tile shapes,
+     blocks, clusters resident), against the same products by cuBLAS
+     (torch.mm and a row sum a layer, fp32, TF32 off: the library
+     yardstick, timed beside it) with a float64 arbiter, a second launch
+     giving the same bits;
   5. kernel vs plain, vgg pool and upsample (kernels 4-7): each kernel at
      every site of the KTH training step (N = 2000 frames), half of the
      frames quantised with flat 2x2 windows so that ties occur, and two
@@ -340,6 +346,79 @@ def backward_split_ms(run, iters=10):
                 bwd_wrapper_ms=whole - carry - wgrad)
 
 
+# readings of the weight-gradient pass's and its yardstick's times, each
+# the mean of cuda_ms's 20 calls
+WGRAD_READINGS = 5
+
+
+def check_wgrad(name, args, bound):
+    """The weight-gradient pass alone (kernel 3b) on the inputs a training
+    backward gave it, `args` = (shapes, n_pz, a_src, g_src), at its
+    wrapper's plan: against the same products in fp32 by the library
+    (weight_gradients_reference: a torch.mm and a row sum a layer, TF32
+    off, each layer's columns taken from the layer shapes and not from the
+    kernel's job table, so a wrong route fails too) with a float64 run of
+    them as arbiter, at GRAD_RTOL / GRAD_ATOL; a second launch must give
+    the same bits. Times the kernel and, as its yardstick, the library
+    sequence (timed only: the port never calls it on the card), each the
+    median of WGRAD_READINGS readings taken in turns, with their least and
+    most. `bound` is the pass's (ms, bound_by). Returns the row."""
+    shapes, n_pz, a_src, g_src = args
+    device = g_src[0].device
+    n_rows = g_src[0].shape[0] * g_src[0].shape[1]
+    plan = krollout_train.wgrad_plan(shapes, n_rows, device)
+    clusters, per_sm = krollout_train.wgrad_occupancy(plan, device)
+    n_tiles = krollout_train.wgrad_n_tiles(shapes)
+    run = lambda: krollout_train.weight_gradients(  # noqa: E731
+        shapes, n_pz, a_src, g_src, plan)
+    library = lambda: krollout_train.weight_gradients_reference(  # noqa
+        shapes, n_pz, a_src, g_src)
+    out, again, lib = run(), run(), library()
+    ref64 = krollout_train.weight_gradients_reference(
+        shapes, n_pz, [a.double() for a in a_src],
+        [g.double() for g in g_src])
+    torch.cuda.synchronize()
+    same_bits = all(bit_equal(a, b) for a, b in zip(out, again))
+    judged = [parity.agreement(a, b, c, GRAD_RTOL, GRAD_ATOL)
+              for a, b, c in zip(out, lib, ref64)]
+
+    def from_f64(outs):
+        return max(((a.double() - c).abs()
+                    / (GRAD_ATOL + GRAD_RTOL * c.abs())).max().item()
+                   for a, c in zip(outs, ref64))
+    worst = max(range(len(judged)), key=lambda i: judged[i][1])
+    readings = [(cuda_ms(run), cuda_ms(library))
+                for _ in range(WGRAD_READINGS)]
+    kernel_ms, library_ms = (sorted(r) for r in zip(*readings))
+    row = dict(case=name, n_rows=n_rows, split=plan,
+               tiles=sorted(set(krollout_train.wgrad_tiles(shapes))),
+               n_tiles=n_tiles, blocks=n_tiles * plan,
+               clusters_resident=clusters,
+               blocks_per_sm=per_sm,
+               max_abs_err=max((a - b).abs().max().item()
+                               for a, b in zip(out, lib)),
+               err_over_tol=max(j[0] for j in judged),
+               err_over_tol_f64=judged[worst][1],
+               elements_excused=sum(j[2] for j in judged),
+               worst=leaf_names(n_pz, len(shapes) - 1 - n_pz)[2 + worst],
+               err_over_tol_from_f64=from_f64(out),
+               library_err_over_tol_from_f64=from_f64(lib),
+               same_bits=same_bits,
+               finite=all(bool(torch.isfinite(a).all()) for a in out),
+               ms=kernel_ms[WGRAD_READINGS // 2],
+               ms_range=[kernel_ms[0], kernel_ms[-1]],
+               library_ms=library_ms[WGRAD_READINGS // 2],
+               library_ms_range=[library_ms[0], library_ms[-1]],
+               bound_ms=bound[0], bound_by=bound[1])
+    print("wgrad_check " + json.dumps(row), flush=True)
+    if not (row["finite"] and same_bits and row["err_over_tol_f64"] <= 1.0):
+        raise SystemExit(f"weight-gradient pass disagrees with the library "
+                         f"({name}): err/tol {row['err_over_tol_f64']} "
+                         f"({row['worst']}), same bits on a second launch: "
+                         f"{same_bits}")
+    return row
+
+
 def _worst(out, ref, rtol, atol):
     diff = (out - ref).abs()
     return (diff.max().item(),
@@ -396,6 +475,8 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
                   lv[1], eps.to(dtype), oversampling)
 
     runs = {}
+    # the weight-gradient pass's inputs on the first kernel run (check_wgrad)
+    krollout_train.wgrad_inputs = []
     for route, fn, dtype in (
             ("kernel", kernel, torch.float32),
             ("plain", krollout_train.train_rollout_reference, torch.float32),
@@ -405,6 +486,9 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
         outs = call(fn, lv, dtype)
         grads = torch.autograd.grad(parity.rollout_loss(outs), lv)
         runs[route] = (outs, grads, lv)
+        if route == "kernel":
+            (wgrad_args,), krollout_train.wgrad_inputs = \
+                krollout_train.wgrad_inputs, None
     lv = runs["kernel"][2]
     outs_again = call(kernel, lv)
     again = torch.autograd.grad(parity.rollout_loss(outs_again), lv)
@@ -479,6 +563,7 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
         row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = ms, by
     row["plain_fwd_bwd_ms"] = times["plain_fwd_ms"] + times["plain_bwd_ms"]
     print("train_kernel_check " + json.dumps(row), flush=True)
+    row["wgrad"] = check_wgrad(name, wgrad_args, bounds["wgrad"])
     finite = all(f[1] for f in fwd) and all(b[1] for b in bwd)
     if not finite or not same_bits or row["fwd_err_over_tol_f64"] > 1.0 \
             or row["bwd_err_over_tol_f64"] > 1.0:
@@ -1514,6 +1599,20 @@ def main():
               f"carry {tr['carry_bound_ms']:.4f}, weight gradients "
               f"{tr['wgrad_bound_ms']:.4f} ms); plain forward + backward "
               f"{tr['plain_fwd_bwd_ms']:.4f} ms", flush=True)
+        wg = tr["wgrad"]
+        print(f"{what} weight-gradient pass N={wg['n_rows']}: plan S="
+              f"{wg['split']}, tiles {wg['tiles']}, {wg['n_tiles']} tiles, "
+              f"{wg['blocks']} blocks, {wg['clusters_resident']} clusters "
+              f"resident ({wg['blocks_per_sm']} blocks an SM): "
+              f"{wg['ms']:.4f} ms (bound {wg['bound_ms']:.4f} ms, "
+              f"{wg['bound_by']}; cuBLAS torch.mm + sum, TF32 off, "
+              f"{wg['library_ms']:.4f} ms; medians of "
+              f"{WGRAD_READINGS}, ranges {wg['ms_range']} and "
+              f"{wg['library_ms_range']}); err/tol "
+              f"{wg['err_over_tol_f64']:.3f} arbitrated by float64 "
+              f"({wg['worst']}); from float64 "
+              f"{wg['err_over_tol_from_f64']:.3f}, cuBLAS "
+              f"{wg['library_err_over_tol_from_f64']:.3f}", flush=True)
     print(f"kth prior rollout B={kth_eval_row['B']}, "
           f"{kth_eval_row['n_steps']} substeps: {kth_eval_row['ms']:.4f} ms "
           f"(bound {kth_eval_row['bound_ms']:.4f} ms, plain "

@@ -29,7 +29,17 @@ training step) at every cluster plan that fits one wave (one block an SM,
 as `kernels/rollout.cluster_plan` requires) and fits each to
 t = a + alpha R + beta / C (us a substep, device time) by least squares on
 the relative error: the cost model behind that plan, whose WEIGHT_ROWS is
-beta / alpha; and kernel 3's carry pass at B = 128 at every such plan.
+beta / alpha; kernel 3's carry pass at B = 128 at every such plan; and
+kernel 3's weight-gradient pass at every split S (blocks of a cluster
+sharing a tile's row sum) the card can schedule, at the dcgan step (B =
+128) and the KTH one (B = 100, K = 38), beside the plan's cost
+(`rollout_train.wgrad_cost`), the card's occupancy and the split
+`wgrad_plan` picks; and at each split the pass alone on N(0, 1) sources
+of those shapes against float64 (`wgrad_accuracy`): its largest error
+norm over cuBLAS's (torch.mm, TF32 off) of any layer, its largest
+element error in unit roundoffs of sum |g a|, and the element-wise
+reading of parity.agreement at rtol 5e-4 / atol 5e-6 against cuBLAS with
+the float64 arbiter.
 
 Prints one JSON line with the card's name and power limit. Needs CUDA.
 """
@@ -106,6 +116,30 @@ def one_wave(kr, bsz, resident):
                 yield plan
 
 
+def wgrad_accuracy(torch, krt, parity, shapes, n_rows, plan, gen):
+    """The weight-gradient pass at split `plan` on N(0, 1) sources of these
+    shapes and n_rows rows, against float64 and cuBLAS in fp32."""
+    widths = krt.wgrad_source_widths(shapes, 4)
+    a_src, g_src = ([torch.randn(n_rows, w, generator=gen, device="cuda")
+                     for w in ws] for ws in widths)
+    out = krt.weight_gradients(shapes, 4, a_src, g_src, plan)
+    lib = krt.weight_gradients_reference(shapes, 4, a_src, g_src)
+    f64 = krt.weight_gradients_reference(
+        shapes, 4, [a.double() for a in a_src], [g.double() for g in g_src])
+    mag = krt.weight_gradients_reference(
+        shapes, 4, [a.double().abs() for a in a_src],
+        [g.double().abs() for g in g_src])
+    u = 2.0 ** -24
+    return dict(
+        norm_over_cublas=max((o.double() - r).norm().item()
+                             / (c.double() - r).norm().item()
+                             for o, c, r in zip(out, lib, f64)),
+        bound_units=max(((o.double() - r).abs() / (u * m)).max().item()
+                        for o, r, m in zip(out, f64, mag)),
+        agreement=max(parity.agreement(o, c, r, 5e-4, 5e-6)[1]
+                      for o, c, r in zip(out, lib, f64)))
+
+
 def layers(torch, MLP, ny, nz, seed):
     torch.manual_seed(seed)
     q = torch.nn.Linear(NH_INF, 2 * nz).cuda()
@@ -128,6 +162,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("bench_torch_rollout: needs a CUDA device")
     from srvp_tpu_torch.config import strict_fp32
+    from srvp_tpu_torch.kernels import parity
     from srvp_tpu_torch.kernels import rollout as kr
     from srvp_tpu_torch.kernels import rollout_train as krt
     from srvp_tpu_torch.models.mlp import MLP
@@ -253,6 +288,43 @@ def main():
         out["k3_dcgan_carry_plans"] = carry
         out["k3_dcgan_carry_plan_chosen"] = krt.bwd_plan(
             128, 20, 20, hmax, cuda)
+        # the weight-gradient pass at every split, dcgan then KTH
+        out["k3_wgrad_occupancy"] = {
+            split: krt.wgrad_occupancy(split, cuda) for split in kr.CLUSTERS}
+        for name, dims, bsz, k_steps, o in (("dcgan", DCGAN, 128, 14, 1),
+                                            ("kth", KTH, 100, 38, 2)):
+            q, pz, dyn = layers(torch, MLP, dims["ny"], dims["nz"], 1)
+            y0 = torch.randn(bsz, dims["ny"], generator=gen, device="cuda",
+                             requires_grad=True)
+            hxz = torch.randn(k_steps, bsz, NH_INF, generator=gen,
+                              device="cuda", requires_grad=True)
+            eps = torch.randn(k_steps, bsz, dims["nz"], generator=gen,
+                              device="cuda")
+            leaves = [y0, hxz] + [t for w, b in [q, *pz, *dyn]
+                                  for t in (w, b)]
+            shapes = krt._shapes([q, *pz, *dyn])
+            n_tiles = krt.wgrad_n_tiles(shapes)
+            sweep = []
+            for split in kr.CLUSTERS:
+                occupancy = krt.wgrad_occupancy(split, cuda)
+                if occupancy[0] < 1:
+                    continue
+                outs = krt.train_rollout(
+                    q, pz, dyn, y0, hxz, eps, o,
+                    wgrad_plan=split)
+                cots = [torch.ones_like(t) for t in outs]
+                dev = device_ms(torch, lambda: torch.autograd.grad(  # noqa
+                    outs, leaves, cots, retain_graph=True), args.reps)
+                sweep.append(dict(
+                    split=split, device_ms=dev.get("wgrad"),
+                    cost=krt.wgrad_cost(n_tiles, bsz * k_steps, split,
+                                        *occupancy),
+                    **wgrad_accuracy(torch, krt, parity, shapes,
+                                     bsz * k_steps,
+                                     split, gen)))
+            out[f"k3_{name}_wgrad_plans"] = sweep
+            out[f"k3_{name}_wgrad_plan_chosen"] = krt.wgrad_plan(
+                shapes, bsz * k_steps, cuda)
     print(json.dumps(out), flush=True)
 
 

@@ -51,12 +51,16 @@
 //    dL/dy_0. Each SM so takes in 1/C of the weights a substep;
 //  * backward, weight-gradient pass: dW_l = sum over the K*B (substep, row)
 //    pairs of g_l^T a_{l-1}, db_l = sum g_l. The TPU kernel accumulates dW in
-//    VMEM across its sequential grid; on the GPU blocks run at once, so each
-//    64 x 64 tile of a dW is owned by one block that sums over all K*B rows
-//    in a fixed order: deterministic, no atomics. a_{l-1} is the layer's
-//    input: hxz, [y_k, z_k], or the ReLU of a stashed pre-activation.
+//    VMEM across its sequential grid; on the GPU each tile of a dW is owned
+//    by a thread-block cluster whose ranks split its row sum and combine
+//    their partials through distributed shared memory in a fixed order:
+//    deterministic, no atomics (see train_rollout_wgrad_kernel). a_{l-1} is
+//    the layer's input: hxz, [y_k, z_k], or the ReLU of a stashed
+//    pre-activation.
 // There is no 128-lane padding and no loc/raw repacking of the q head: the
 // kernels work on the true widths.
+
+#include <cstdint>
 
 #include "tile_mlp.cuh"
 
@@ -443,22 +447,58 @@ train_rollout_bwd_carry_kernel(
   // cluster barrier, so every rank may exit now
 }
 
-// Weight-gradient pass. Job j (int32 row of kJobW) is one linear layer:
+// Weight-gradient pass: the `dW += a^T g`, `db += sum g` of `_bwd_kernel`
+// (srvp_tpu/ops/pallas/rollout_train.py:71-72, :226-228), which sums every
+// dW in VMEM across its sequential grid. Job j (int32 row of kJobW) is one
+// linear layer:
 //   {a_src, a_ld, a_off, a_relu, g_src, g_ld, g_off, w_off, b_off, din,
-//    dout, tile0}
+//    dout, tile0, TO, TI}
 // dW (dout, din) row-major at grads + w_off, db (dout) at grads + b_off,
 // dW[o][i] = sum_n G[n][g_off + o] * act(A[n][a_off + i]), db[o] = sum_n
-// G[n][g_off + o], over the N = K*B (substep, row) pairs. Each block owns one
-// kTile x kTile tile of one dW (tiles of job j start at block tile0) and
-// sums over n in a fixed order: FMAs within each chunk of kTK rows, the
-// chunks Kahan-summed, so 1,792-term sums with cancellation keep the
-// accuracy of a library GEMM's blocked sums. The block stages kStageRows
-// rows (kStageRows / kTK chunks) between two barriers, and each thread
-// loads the next stage into registers while the block multiplies this one;
-// each element's sum is the same as with one chunk a stage. (A 3xTF32
-// version on the tensor cores ran 2.3x faster and missed the gradients'
-// tolerance on KTH's q head: PERF.md.)
-constexpr int kJobW = 12;
+// G[n][g_off + o], over the N = K*B (substep, row) pairs; act is the ReLU
+// when a_relu (a stashed pre-activation), else the identity. The job's
+// tiles are TO x TI, numbered from tile0, row-major over (o, i).
+//
+// What bounds it on the H100: operations, 2 N x (the layers' MACs) fp32
+// FLOPs over the CUDA cores' 67 TFLOP/s: 4.0 GFLOP, 0.060 ms at dcgan's
+// B = 128, K = 14, and 9.3 GFLOP, 0.139 ms at KTH's B = 100, K = 38; the
+// bytes (each input read once) take a quarter of that. The first design
+// (a block a 64 x 64 tile summing all N rows, one stage prefetched through
+// registers) ran at a fifth of that rate: 292 small tiles for 132 SMs (a
+// short tail wave, the thin layers' tiles mostly padding), 2 shared loads
+// for every 16 FMAs, one stage in flight and two barriers a stage.
+//
+// Design.
+//  * Tiles of kWgArea = 8192 outputs, 8 (o) x 4 (i) a thread: 128 x 64 on
+//    the wide layers (3 16-byte shared loads for 32 FMAs a row), and
+//    256 x 32, 64 x 128 or 32 x 256 where a layer is thin, the shape of
+//    fewest tiles (kernels/rollout_train.py `wgrad_tiles`), so that no thin
+//    layer's block is more than half padding. A thread keeps its 32 sums
+//    and a chunk's 32 partial sums in registers and the sums' Kahan
+//    compensations in shared memory: two blocks an SM at 128 registers,
+//    4 bytes spilled (with the compensations in registers, far more).
+//  * A thread-block cluster of S blocks shares a tile and splits its row
+//    sum: rank s sums chunks [s NC / S, (s + 1) NC / S) of the NC =
+//    ceil(N / kTK) chunks of kTK rows, in order: FMAs within a chunk, the
+//    chunks Kahan-summed, so that a 3,800-term sum that cancels keeps the
+//    accuracy of a library GEMM's blocked sums. Each rank leaves its
+//    partial tile (sum and compensation) in shared memory; after the
+//    cluster barrier each rank combines its 1/S of the tile from the S
+//    partials, read through distributed shared memory in rank order
+//    0..S-1, and writes that part of dW and db. No second launch, no
+//    workspace, no atomics: the same bits every launch. S is the plan's
+//    (`wgrad_plan`, from the card's cluster occupancy).
+//  * The rows reach shared memory through a ring of kWgStages stages of kTK
+//    rows of G and A by cp.async (16 bytes a copy where the source's rows
+//    are 16-byte aligned, else 4), one block barrier a stage; rows past N
+//    and columns past the layer's width are filled with 0, and no chunk
+//    starts past N. Each thread applies the ReLU to the stash values it
+//    copied once they land, before the barrier.
+//  * db is summed on the tiles at i0 = 0, from the staged G: each column
+//    by 256 / TO threads, each taking every (256 / TO)-th row of a chunk.
+// (A 3xTF32 version on the tensor cores ran 2.3x faster and missed the
+// gradients' tolerance on KTH's q head: PERF.md.)
+constexpr int kJobW = 14;
 
 // sum += x with Kahan's compensation c: the error of a long fp32 sum stays
 // near one rounding instead of growing with its length (nvcc keeps the
@@ -470,12 +510,281 @@ __device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
   sum = t;
 }
 
-constexpr int kTile = 64;
-constexpr int kTK = 16;
-constexpr int kStageRows = 64;
 constexpr int kWgThreads = 256;
+// blocks an SM that the register budget is set for (ptxas: at most
+// 65536 / (256 * 2) = 128 registers a thread)
+constexpr int kWgMinBlocks = 2;
+constexpr int kTK = 16;                       // rows a chunk and a stage
+constexpr int kWgStages = 4;
+constexpr int kWgArea = kWgThreads * 8 * 4;   // outputs a tile
+constexpr int kWgRowMax = 288;                // TO + TI of the thin shapes
+constexpr int kWgRing = kWgStages * kTK * kWgRowMax;  // floats
+// the ring, the bias partials (sums and compensations), and the Kahan
+// compensations of every thread's 32 sums (in shared memory, so that the
+// sums, the chunk's partial sums and a row's operands fit 128 registers)
+constexpr size_t kWgSmem =
+    sizeof(float) * (kWgRing + 2 * kWgThreads + 32 * kWgThreads);
+static_assert(2 * kWgArea <= kWgRing, "the partial tiles reuse the ring");
 
-__global__ void __launch_bounds__(kWgThreads)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// (the memory clobber keeps the reads of the landed copies after the wait)
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// Copies rows [n, n + kTK) of the W columns [c0, c0 + W) of `src` (row
+// stride ld) into dst ([kTK][W]), V floats a copy (V = 4: 16-byte copies,
+// every row of src 16-byte aligned); columns at or past `width` and rows at
+// or past N are filled with 0. W / V divides kWgThreads, so a thread copies
+// the same columns of every row it copies (see relu_own).
+template <int W, int V>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int ld, int c0, int width, int n,
+                                           int N) {
+  constexpr int kPerRow = W / V;
+  constexpr int kCopies = kTK * kPerRow;
+  const int tid = threadIdx.x;
+  const int c = (tid % kPerRow) * V;
+  const int cols = min(max(width - (c0 + c), 0), V);
+#pragma unroll
+  for (int q = 0; q < (kCopies + kWgThreads - 1) / kWgThreads; ++q) {
+    const int e = tid + q * kWgThreads;
+    if (kCopies % kWgThreads != 0 && e >= kCopies) break;
+    const int r = e / kPerRow;
+    const int row = n + r;
+    const int bytes = row < N ? 4 * cols : 0;
+    const float* s = bytes ? src + (size_t)row * ld + c0 + c : src;
+    if constexpr (V == 4)
+      cp_async16(dst + r * W + c, s, bytes);
+    else
+      cp_async4(dst + r * W + c, s, bytes);
+  }
+}
+
+// ReLU, in place, of the values this thread copied into dst by
+// stage_rows<W, V> (visible to it once its copies have landed).
+template <int W, int V>
+__device__ __forceinline__ void relu_own(float* dst) {
+  constexpr int kPerRow = W / V;
+  constexpr int kCopies = kTK * kPerRow;
+  const int tid = threadIdx.x;
+  const int c = (tid % kPerRow) * V;
+#pragma unroll
+  for (int q = 0; q < (kCopies + kWgThreads - 1) / kWgThreads; ++q) {
+    const int e = tid + q * kWgThreads;
+    if (kCopies % kWgThreads != 0 && e >= kCopies) break;
+    float* p = dst + (e / kPerRow) * W + c;
+    if constexpr (V == 4)
+      *reinterpret_cast<float4*>(p) = relu4(*reinterpret_cast<float4*>(p));
+    else
+      *p = fmaxf(*p, 0.0f);
+  }
+}
+
+// One job's sources and outputs: A and G at the job's column offsets.
+struct WgJob {
+  const float* A;
+  const float* G;
+  int a_ld, g_ld, din, dout, relu;
+  float* dW;
+  float* db;
+};
+
+// The rank's part of the TO x TI tile at (o0, i0) of job jb: its row sum,
+// then, after the cluster barrier, its 1/S of the tile combined from every
+// rank's partial.
+template <int TO, int TI>
+__device__ void wgrad_tile(const WgJob& jb, float* smem, int o0, int i0,
+                           int N, int rank, int S) {
+  constexpr int kRow = TO + TI;
+  constexpr int TX = TI / 4;           // threads along i
+  constexpr int P = kWgThreads / TO;   // threads summing a column of db
+  static_assert((TO / 8) * TX == kWgThreads, "8 x 4 outputs a thread");
+  static_assert(kRow <= kWgRowMax && TO * TI == kWgArea, "tile shape");
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const bool g_vec =
+      ((reinterpret_cast<uintptr_t>(jb.G) & 15) | (jb.g_ld & 3)) == 0;
+  const bool a_vec =
+      ((reinterpret_cast<uintptr_t>(jb.A) & 15) | (jb.a_ld & 3)) == 0;
+  const bool bias = i0 == 0;
+  const int n_chunks = (N + kTK - 1) / kTK;
+  const int c_begin = (int)((long long)n_chunks * rank / S);
+  const int n_mine = (int)((long long)n_chunks * (rank + 1) / S) - c_begin;
+
+  auto stage = [&](int k) { return smem + (k % kWgStages) * (kTK * kRow); };
+  auto load = [&](int k) {
+    float* st = stage(k);
+    const int n = (c_begin + k) * kTK;
+    if (g_vec)
+      stage_rows<TO, 4>(st, jb.G, jb.g_ld, o0, jb.dout, n, N);
+    else
+      stage_rows<TO, 1>(st, jb.G, jb.g_ld, o0, jb.dout, n, N);
+    if (a_vec)
+      stage_rows<TI, 4>(st + kTK * TO, jb.A, jb.a_ld, i0, jb.din, n, N);
+    else
+      stage_rows<TI, 1>(st + kTK * TO, jb.A, jb.a_ld, i0, jb.din, n, N);
+  };
+
+  // the sums in registers, their compensations in shared memory: a float4
+  // a row of 4 outputs, [8][kWgThreads]
+  float acc[8][4];
+  float4* comp = reinterpret_cast<float4*>(smem + kWgRing + 2 * kWgThreads);
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+#pragma unroll
+    for (int y = 0; y < 4; ++y) acc[x][y] = 0.0f;
+    comp[x * kWgThreads + tid] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float db = 0.0f, db_comp = 0.0f;
+  const int ob = tid % TO, pb = tid / TO;   // this thread's db column, rows
+
+  // a group a stage, empty ones too, so that the wait below counts stages
+#pragma unroll
+  for (int k = 0; k < kWgStages - 1; ++k) {
+    if (k < n_mine) load(k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n_mine; ++k) {
+    cp_async_wait<kWgStages - 2>();     // this thread's copies of chunk k
+    const float* gs = stage(k);
+    const float* as = gs + kTK * TO;
+    if (jb.relu) {
+      if (a_vec)
+        relu_own<TI, 4>(stage(k) + kTK * TO);
+      else
+        relu_own<TI, 1>(stage(k) + kTK * TO);
+    }
+    __syncthreads();
+    // the slot of chunk k - 1, which every thread has finished
+    if (k + kWgStages - 1 < n_mine) load(k + kWgStages - 1);
+    cp_async_commit();
+    // row kk's 8 G and 4 A values into part: a product on the chunk's
+    // first row, FMAs on the others
+    float part[8][4];
+    auto row = [&](int kk, bool first) {
+      const float4 g0 =
+          *reinterpret_cast<const float4*>(gs + kk * TO + ty * 8);
+      const float4 g1 =
+          *reinterpret_cast<const float4*>(gs + kk * TO + ty * 8 + 4);
+      const float4 av =
+          *reinterpret_cast<const float4*>(as + kk * TI + tx * 4);
+      const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      const float a[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+          part[x][y] = first ? g[x] * a[y] : fmaf(g[x], a[y], part[x][y]);
+    };
+    row(0, true);
+#pragma unroll
+    for (int kk = 1; kk < kTK; ++kk) row(kk, false);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      float4 c = comp[x * kWgThreads + tid];
+      kahan_add(acc[x][0], c.x, part[x][0]);
+      kahan_add(acc[x][1], c.y, part[x][1]);
+      kahan_add(acc[x][2], c.z, part[x][2]);
+      kahan_add(acc[x][3], c.w, part[x][3]);
+      comp[x * kWgThreads + tid] = c;
+    }
+    if (bias) {
+      float dpart = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kTK / P; ++kk) dpart += gs[(pb + kk * P) * TO + ob];
+      kahan_add(db, db_comp, dpart);
+    }
+  }
+  cp_async_wait<0>();   // (only empty groups can be left)
+  __syncthreads();      // every thread is done with the ring
+
+  // the partial tile: [TO][TI] sums, then [TO][TI] compensations; the bias
+  // partials [P][TO] likewise, after the ring
+  float* red = smem;
+  float* bred = smem + kWgRing;
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    float* p = red + (ty * 8 + x) * TI + tx * 4;
+    *reinterpret_cast<float4*>(p) =
+        make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
+    *reinterpret_cast<float4*>(p + kWgArea) = comp[x * kWgThreads + tid];
+  }
+  if (bias) {
+    bred[pb * TO + ob] = db;
+    bred[kWgThreads + pb * TO + ob] = db_comp;
+  }
+  tile_barrier();
+
+  cg::cluster_group cluster = cg::this_cluster();
+  auto peer = [&](const float* p, int s) {
+    return S == 1 ? p : static_cast<const float*>(cluster.map_shared_rank(
+                            const_cast<float*>(p), s));
+  };
+  // this rank's groups of 4 outputs, [rank * per, (rank + 1) * per): the
+  // compensations summed first, then the sums Kahan-added, rank by rank
+  const int per = kWgArea / 4 / S;
+  for (int e4 = tid; e4 < per; e4 += kWgThreads) {
+    const int e = (rank * per + e4) * 4;
+    const int o = o0 + e / TI, i = i0 + e % TI;
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int s = 0; s < S; ++s) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(peer(red + kWgArea + e, s));
+      c[0] += v.x;
+      c[1] += v.y;
+      c[2] += v.z;
+      c[3] += v.w;
+    }
+    for (int s = 0; s < S; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(peer(red + e, s));
+      kahan_add(sum[0], c[0], v.x);
+      kahan_add(sum[1], c[1], v.y);
+      kahan_add(sum[2], c[2], v.z);
+      kahan_add(sum[3], c[3], v.w);
+    }
+    if (o < jb.dout) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (i + b < jb.din) jb.dW[(size_t)o * jb.din + i + b] = sum[b];
+    }
+  }
+  if (bias) {
+    const int per_o = TO / S;
+    for (int t = tid; t < per_o; t += kWgThreads) {
+      const int o = rank * per_o + t;
+      float c = 0.0f, sum = 0.0f;
+      for (int s = 0; s < S; ++s)
+        for (int q = 0; q < P; ++q)
+          c += peer(bred + kWgThreads + q * TO + o, s)[0];
+      for (int s = 0; s < S; ++s)
+        for (int q = 0; q < P; ++q)
+          kahan_add(sum, c, peer(bred + q * TO + o, s)[0]);
+      if (o0 + o < jb.dout) jb.db[o0 + o] = sum;
+    }
+  }
+  // no rank exits while a peer may still read its shared memory
+  tile_barrier();
+}
+
+__global__ void __launch_bounds__(kWgThreads, kWgMinBlocks)
 train_rollout_wgrad_kernel(const int* __restrict__ jobs, int n_jobs,
                            const float* __restrict__ a0,
                            const float* __restrict__ a1,
@@ -485,104 +794,34 @@ train_rollout_wgrad_kernel(const int* __restrict__ jobs, int n_jobs,
                            const float* __restrict__ g1,
                            const float* __restrict__ g2,
                            float* __restrict__ grads, int N) {
-  __shared__ __align__(16) float gs[kStageRows][kTile];
-  __shared__ __align__(16) float as[kStageRows][kTile];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int S = cluster_size(), rank = cluster_rank();
+  const int tile = blockIdx.x / S;
   int j = 0;
-  while (j + 1 < n_jobs && (int)blockIdx.x >= jobs[(j + 1) * kJobW + 11]) ++j;
+  while (j + 1 < n_jobs && tile >= jobs[(j + 1) * kJobW + 11]) ++j;
   const int* job = jobs + j * kJobW;
   const float* A = job[0] == 0 ? a0 : job[0] == 1 ? a1 : job[0] == 2 ? a2 : a3;
   const float* G = job[4] == 0 ? g0 : job[4] == 1 ? g1 : g2;
-  const int a_ld = job[1], a_off = job[2], a_relu = job[3];
-  const int g_ld = job[5], g_off = job[6];
-  const int din = job[9], dout = job[10];
-  const int tiles_i = (din + kTile - 1) / kTile;
-  const int tile = blockIdx.x - job[11];
-  const int o0 = (tile / tiles_i) * kTile, i0 = (tile % tiles_i) * kTile;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool with_bias = (tile % tiles_i) == 0 && tid < kTile;
-
-  float acc[4][4], comp[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = comp[a][b] = 0.0f;
-  float db = 0.0f, db_comp = 0.0f;
-
-  // this thread's values of a stage: rows e / kTile, column e % kTile
-  constexpr int kPer = kStageRows * kTile / kWgThreads;
-  float rg[kPer], ra[kPer];
-  auto fetch = [&](int n0) {
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int e = tid + q * kWgThreads;
-      const int c = e % kTile, n = n0 + e / kTile;
-      float gv = 0.0f, av = 0.0f;
-      if (n < N) {
-        if (o0 + c < dout) gv = G[(size_t)n * g_ld + g_off + o0 + c];
-        if (i0 + c < din) av = A[(size_t)n * a_ld + a_off + i0 + c];
-      }
-      rg[q] = gv;
-      ra[q] = a_relu ? fmaxf(av, 0.0f) : av;
-    }
-  };
-  fetch(0);
-  for (int s0 = 0; s0 < N; s0 += kStageRows) {
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int e = tid + q * kWgThreads;
-      gs[e / kTile][e % kTile] = rg[q];
-      as[e / kTile][e % kTile] = ra[q];
-    }
-    __syncthreads();
-    if (s0 + kStageRows < N) fetch(s0 + kStageRows);
-    // no chunk starts past N (a Kahan step on a zero part would still move
-    // the sum by its compensation)
-    const int k_end = min(kStageRows, N - s0);
-    for (int k0 = 0; k0 < k_end; k0 += kTK) {
-      float part[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) part[a][b] = 0.0f;
-#pragma unroll
-      for (int kk = k0; kk < k0 + kTK; ++kk) {
-        const float4 gv = *reinterpret_cast<const float4*>(&gs[kk][ty * 4]);
-        const float4 av = *reinterpret_cast<const float4*>(&as[kk][tx * 4]);
-        const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
-        const float a4[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            part[a][b] = fmaf(g4[a], a4[b], part[a][b]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          kahan_add(acc[a][b], comp[a][b], part[a][b]);
-      if (with_bias) {
-        float dpart = 0.0f;
-#pragma unroll
-        for (int kk = k0; kk < k0 + kTK; ++kk) dpart += gs[kk][tid];
-        kahan_add(db, db_comp, dpart);
-      }
-    }
-    __syncthreads();
+  const WgJob jb{A + job[2], G + job[6], job[1],        job[5],
+                 job[9],     job[10],    job[3],        grads + job[7],
+                 grads + job[8]};
+  const int TO = job[12], TI = job[13];
+  const int tiles_i = (jb.din + TI - 1) / TI;
+  const int t = tile - job[11];
+  const int o0 = (t / tiles_i) * TO, i0 = (t % tiles_i) * TI;
+  switch (TO) {
+    case 256: wgrad_tile<256, 32>(jb, smem, o0, i0, N, rank, S); break;
+    case 128: wgrad_tile<128, 64>(jb, smem, o0, i0, N, rank, S); break;
+    case 64: wgrad_tile<64, 128>(jb, smem, o0, i0, N, rank, S); break;
+    default: wgrad_tile<32, 256>(jb, smem, o0, i0, N, rank, S); break;
   }
+}
 
-  float* dW = grads + job[7];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int oo = o0 + ty * 4 + a;
-    if (oo >= dout) continue;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int ii = i0 + tx * 4 + b;
-      if (ii < din) dW[(size_t)oo * din + ii] = acc[a][b];
-    }
-  }
-  if (with_bias && o0 + tid < dout) grads[job[8] + o0 + tid] = db;
+// the cluster sizes the weight-gradient pass takes: S divides the tile's
+// kWgArea / 4 groups of outputs, and at most 16 blocks (non-portable)
+inline bool wgrad_split_ok(int S) {
+  return S >= 1 && S <= 16 && (kWgArea / 4) % S == 0;
 }
 
 template <int R>
@@ -767,17 +1006,38 @@ extern "C" int srvp_train_rollout_bwd_clusters(int ny, int nz, int hmax,
 }
 
 // Backward weight-gradient pass: n_jobs rows of jobs (see the kernel),
-// n_tiles blocks in all; A sources a0..a3 and G sources g0..g2 (K*B = N
-// rows each); grads receives every dW and db.
+// n_tiles tiles in all, each summed by a cluster of S blocks (1, 2, 4, 8 or
+// 16); A sources a0..a3 and G sources g0..g2 (K*B = N rows each); grads
+// receives every dW and db.
 extern "C" int srvp_train_rollout_wgrad(
     const void* jobs, int n_jobs, int n_tiles, const void* a0,
     const void* a1, const void* a2, const void* a3, const void* g0,
-    const void* g1, const void* g2, void* grads, int N, void* stream) {
-  train_rollout_wgrad_kernel<<<n_tiles, kWgThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(jobs), n_jobs, CF(a0), CF(a1), CF(a2), CF(a3),
-      CF(g0), CF(g1), CF(g2), F(grads), N);
-  return (int)cudaGetLastError();
+    const void* g1, const void* g2, void* grads, int N, int S,
+    void* stream) {
+  if (!wgrad_split_ok(S)) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      prepare_cluster_kernel(train_rollout_wgrad_kernel, kWgSmem, S);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_cluster_of(
+      train_rollout_wgrad_kernel, n_tiles * S, kWgThreads, S, kWgSmem,
+      static_cast<cudaStream_t>(stream), static_cast<const int*>(jobs),
+      n_jobs, CF(a0), CF(a1), CF(a2), CF(a3), CF(g0), CF(g1), CF(g2),
+      F(grads), N);
+}
+
+// The weight-gradient pass's occupancy: clusters of S blocks that the card
+// holds at once in *clusters (0 for an S the kernel does not take), and its
+// blocks an SM in *blocks_per_sm. Returns a cudaError_t.
+extern "C" int srvp_train_rollout_wgrad_occupancy(int S, int* clusters,
+                                                  int* blocks_per_sm) {
+  *clusters = 0;
+  *blocks_per_sm = 0;
+  if (!wgrad_split_ok(S)) return (int)cudaSuccess;
+  cudaError_t err = max_active_clusters(train_rollout_wgrad_kernel, S,
+                                        kWgSmem, clusters, kWgThreads);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, train_rollout_wgrad_kernel, kWgThreads, kWgSmem);
 }
 
 #undef F

@@ -255,9 +255,9 @@ __device__ __forceinline__ int cluster_size() {
 
 }  // namespace
 
-// Host side: launching a kernel of kThreads-thread blocks in clusters of C
-// blocks along x (C = 1: a plain launch), and asking how many such clusters
-// the card can hold at once.
+// Host side: launching a kernel of `threads`-thread blocks (kThreads unless
+// named) in clusters of C blocks along x (C = 1: a plain launch), and asking
+// how many such clusters the card can hold at once.
 namespace {
 
 template <class... Args>
@@ -273,10 +273,11 @@ cudaError_t prepare_cluster_kernel(void (*kernel)(Args...), size_t smem,
 
 inline cudaLaunchConfig_t cluster_config(int grid, int C, size_t smem,
                                          cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
+                                         cudaLaunchAttribute* attr,
+                                         int threads = kThreads) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -288,27 +289,39 @@ inline cudaLaunchConfig_t cluster_config(int grid, int C, size_t smem,
   return cfg;
 }
 
-// grid blocks, C to a cluster, after prepare_cluster_kernel.
+// grid blocks of `threads` threads, C to a cluster, after
+// prepare_cluster_kernel.
 template <class... Args, class... Act>
-cudaError_t launch_cluster(void (*kernel)(Args...), int grid, int C,
-                           size_t smem, cudaStream_t stream, Act... args) {
+cudaError_t launch_cluster_of(void (*kernel)(Args...), int grid, int threads,
+                              int C, size_t smem, cudaStream_t stream,
+                              Act... args) {
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(grid, C, smem, stream, &attr);
+  cudaLaunchConfig_t cfg =
+      cluster_config(grid, C, smem, stream, &attr, threads);
   if (C == 1) cfg.numAttrs = 0;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Clusters of C blocks (smem bytes each) of `kernel` that the card can hold
-// at once, in *n; 0 if such a cluster cannot be scheduled at all.
+// launch_cluster_of with blocks of kThreads threads
+template <class... Args, class... Act>
+cudaError_t launch_cluster(void (*kernel)(Args...), int grid, int C,
+                           size_t smem, cudaStream_t stream, Act... args) {
+  return launch_cluster_of(kernel, grid, kThreads, C, smem, stream, args...);
+}
+
+// Clusters of C blocks (smem bytes and `threads` threads each) of `kernel`
+// that the card can hold at once, in *n; 0 if such a cluster cannot be
+// scheduled at all.
 template <class... Args>
 cudaError_t max_active_clusters(void (*kernel)(Args...), int C, size_t smem,
-                                int* n) {
+                                int* n, int threads = kThreads) {
   *n = 0;
   cudaError_t err = prepare_cluster_kernel(kernel, smem, C);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(C, C, smem, nullptr, &attr);
+  cudaLaunchConfig_t cfg =
+      cluster_config(C, C, smem, nullptr, &attr, threads);
   return cudaOccupancyMaxActiveClusters(n, (void*)kernel, &cfg);
 }
 

@@ -112,8 +112,12 @@ def load_library():
         lib.srvp_train_rollout_bwd.argtypes = [p, p, i, i] + [p] * 14 \
             + [i] * 9 + [p]
         lib.srvp_train_rollout_bwd.restype = i
-        lib.srvp_train_rollout_wgrad.argtypes = [p, i, i] + [p] * 8 + [i, p]
+        lib.srvp_train_rollout_wgrad.argtypes = [p, i, i] + [p] * 8 \
+            + [i, i, p]
         lib.srvp_train_rollout_wgrad.restype = i
+        # (S, int* clusters, int* blocks_per_sm)
+        lib.srvp_train_rollout_wgrad_occupancy.argtypes = [i, p, p]
+        lib.srvp_train_rollout_wgrad_occupancy.restype = i
         ll = ctypes.c_longlong
         for name, n_ptrs in (("srvp_maxpool2x2_fwd", 2),
                              ("srvp_maxpool2x2_bwd", 4),

@@ -3,8 +3,10 @@ rollout, the training rollout's forward and backward (inputs drawn away
 from ReLU kinks by kernels.parity.kink_free_inputs, a float64 run of the
 plain version as the arbiter of elements fp32 cannot resolve), each at the
 dcgan and KTH shapes and at cluster plans of 1, 2, 8 and 16 blocks, the
-same bits on a second launch, and a plan the card cannot hold raising; the vgg
-pool and upsample, forward and backward, bit for bit (ties, a NaN, a
+same bits on a second launch, and a plan the card cannot hold raising; the
+weight-gradient pass alone at every split of its plan (dcgan, KTH, ragged
+widths and N, unaligned rows) against a float64 run of the same products;
+the vgg pool and upsample, forward and backward, bit for bit (ties, a NaN, a
 non-contiguous input, a tensor past 2^31 elements), and the conv stage,
 kernels 8 and 9 (sizes that are no tile multiple, every row on an edge,
 one input channel, n_valid < N, bf16, the same bits on every run, an input
@@ -223,6 +225,110 @@ def test_train_kernels_reject_bad_inputs(cuda):
     for args in bad:
         with pytest.raises(ValueError):
             krt.train_rollout(q, pz, dyn, *args)
+
+
+# the weight-gradient pass's per-element error bound in unit roundoffs of
+# sum |g a|: 16 for a chunk's FMA chain, 2 for each Kahan sum (the chunks,
+# then the ranks), 1 for the final rounding, and room for the second-order
+# terms (N u^2, under 1e-11 at N = 3,800)
+WGRAD_BOUND_U = 24
+
+
+def _shapes(ny, nz, nh_inf, nh):
+    """(out, in) of q, p_z's 4 layers and the dynamics' 4 layers."""
+    def mlp(din, dout):
+        dims = [din, nh, nh, nh, dout]
+        return [(b, a) for a, b in zip(dims, dims[1:])]
+    return tuple([(2 * nz, nh_inf)] + mlp(ny, 2 * nz) + mlp(ny + nz, ny))
+
+
+def _wgrad_sources(shapes, n_steps, bsz, gen, device, offset):
+    """The weight-gradient pass's A sources (hxz, [y, z], the two stashes)
+    and G sources (q, p_z, dynamics cotangents) for these (out, in) shapes,
+    N(0, 1) (the stashes' negative values meet the ReLU); with `offset`,
+    each a view one float into a larger buffer (rows not 16-byte
+    aligned)."""
+    widths_a, widths_g = krt.wgrad_source_widths(shapes, 4)
+
+    def draw(w):
+        n = n_steps * bsz * w
+        buf = torch.randn(n + 1, generator=gen, device=device)
+        return (buf[1:] if offset else buf[:n]).view(n_steps, bsz, w)
+    return [draw(w) for w in widths_a], [draw(w) for w in widths_g]
+
+
+@pytest.mark.parametrize("shapes,n_steps,bsz,offset", [
+    (_shapes(20, 20, 256, 512), 14, 128, False),    # the dcgan step
+    (_shapes(50, 50, 256, 512), 38, 100, False),    # KTH (G rows unaligned)
+    (_shapes(7, 5, 30, 70), 3, 37, True),   # ragged widths and N, 4-byte
+    (_shapes(20, 12, 24, 300), 2, 5, False),  # fewer chunks than ranks
+], ids=["dcgan", "kth", "ragged", "short"])
+@pytest.mark.parametrize("split", krollout.CLUSTERS)
+def test_wgrad_kernel_matches_plain(cuda, shapes, n_steps, bsz, offset,
+                                    split):
+    """The weight-gradient pass at every split wgrad_plan can choose (and
+    its tiles), against a float64 run of the same products, the same bits
+    on a second launch. Each element within its summation's fp32 error
+    bound, WGRAD_BOUND_U unit roundoffs of sum |g| |a| (float64): 16
+    FMAs a chunk, the chunks, then the ranks' partials Kahan-summed, a
+    final rounding; any lost or doubled row or column, or a wrong ReLU,
+    is far outside it. Each layer's error at most cuBLAS's on the same
+    products in fp32 (TF32 off) in L2 norm, plus one unit roundoff of the
+    result's norm (short sums, where both are rounding). On N(0, 1) data an
+    element-wise comparison with cuBLAS arbitrated by float64
+    (parity.agreement) fails where cuBLAS lands within 1e-6 of a near-zero
+    sum, though the kernel's error is the smaller in every layer's norm:
+    the element-wise check runs on a model's gradients
+    (test_train_kernels_match_plain, chip_smoke)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a_src, g_src = _wgrad_sources(shapes, n_steps, bsz, gen, cuda, offset)
+    before = krt.bwd_launches
+    out = krt.weight_gradients(shapes, 4, a_src, g_src, split)
+    again = krt.weight_gradients(shapes, 4, a_src, g_src, split)
+    assert krt.bwd_launches == before + 2
+    lib = krt.weight_gradients_reference(shapes, 4, a_src, g_src)
+    f64 = [a.double() for a in a_src], [g.double() for g in g_src]
+    ref64 = krt.weight_gradients_reference(shapes, 4, *f64)
+    # the plain products of the absolute values: sum |g| |a|, at least
+    # sum |g| |act(a)| (act is a ReLU or the identity)
+    a_abs = [a.abs() for a in f64[0]]
+    mag = krt.weight_gradients_reference(shapes, 4, a_abs,
+                                         [g.abs() for g in f64[1]])
+    u = 2.0 ** -24
+    torch.cuda.synchronize()
+    assert len(out) == 2 * len(shapes)
+    for i, (a, b, c, r64, m) in enumerate(zip(out, again, lib, ref64, mag)):
+        assert a.shape == r64.shape and _bits_equal(a, b)
+        assert torch.isfinite(a).all()
+        err = (a.double() - r64).abs()
+        assert (err <= WGRAD_BOUND_U * u * m).all(), \
+            (i, (err / (u * m).clamp_min(1e-300)).max().item())
+        norm = err.norm().item()
+        assert norm <= (c.double() - r64).norm().item() \
+            + u * r64.norm().item(), (i, norm)
+
+
+def test_wgrad_unschedulable_plan_raises(cuda):
+    """A weight-gradient cluster the card cannot hold (32 blocks, past
+    Hopper's 16) raises before the pass launches, alone or in the
+    backward; the plan is never quietly replaced."""
+    shapes = _shapes(4, 3, 6, 8)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a_src, g_src = _wgrad_sources(shapes, 3, 8, gen, cuda, False)
+    bad = 32
+    before = krt.bwd_launches
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        krt.weight_gradients(shapes, 4, a_src, g_src, bad)
+    assert krt.bwd_launches == before
+    q, pz, dyn = _train_layers(cuda, 6, 8, 4, 3)
+    y0 = torch.randn(8, 4, device=cuda, requires_grad=True)
+    hxz = torch.randn(3, 8, 6, device=cuda)
+    eps = torch.randn(3, 8, 3, device=cuda)
+    outs = krt.train_rollout(q, pz, dyn, y0, hxz, eps, 1, wgrad_plan=bad)
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        torch.autograd.grad(parity.rollout_loss(outs), [y0])
+    # the carry pass ran, the weight-gradient pass did not
+    assert krt.bwd_launches == before + 1
 
 
 def _bits_equal(a, b):

@@ -1,5 +1,5 @@
-"""The cluster design of the latent-rollout kernels 1, 2 and 3 (carry
-pass), checked on the CPU.
+"""The cluster design of the latent-rollout kernels 1, 2 and 3 (carry pass
+and weight-gradient pass), checked on the CPU.
 
 The kernels (csrc/rollout.cu, csrc/rollout_train.cu) split every layer's
 output columns across the C blocks of a thread-block cluster: each rank
@@ -15,12 +15,16 @@ its five outputs and its stashes held at rtol 2e-5 / atol 1e-6
 (tests/test_torch_train_rollout.py) against `train_rollout_reference` (the
 stashes against its hidden pre-activations) and the outputs against JAX's
 `make_train_rollout(..., interpret=True)`; the emulated carry pass, with
-the weight gradients summed from the G buffers it writes by the wrapper's
-job table, at rtol 5e-4 / atol 5e-6 (tests/test_pallas_train.py) against
-autograd of `train_rollout_reference` and JAX's `make_train_rollout(...,
-interpret=True)`, on the same weights and noise. Widths are tiny and not
-multiples of 4 C (30, 6, 2 nz = 8), so ranks get narrow, ragged or empty
-slices."""
+the weight gradients summed from the G buffers it writes by the
+weight-gradient pass's schedule (`emulate_wgrad`: the wrapper's job table,
+tile by tile, each rank of a cluster over its chunks of rows, the ranks'
+partials combined in rank order), at rtol 5e-4 / atol 5e-6
+(tests/test_pallas_train.py) against autograd of `train_rollout_reference`
+and JAX's `make_train_rollout(..., interpret=True)`, on the same weights
+and noise. Widths are tiny and not multiples of 4 C (30, 6, 2 nz = 8), so
+ranks get narrow, ragged or empty slices. The weight-gradient pass's
+tiles, row ranges and plan (`wgrad_plan`, a fake occupancy query) are
+checked at the dcgan and KTH widths too."""
 
 import contextlib
 from types import SimpleNamespace
@@ -131,6 +135,8 @@ def _fake_cuda(monkeypatch):
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "card")
     monkeypatch.setattr(kr, "_max_clusters", {})
+    monkeypatch.setattr(krt, "_wgrad_occupancy", {})
+    monkeypatch.setattr(krt, "_wgrad_plans", {})
     return torch.device("cuda", 7)
 
 
@@ -205,6 +211,157 @@ def test_fwd_unschedulable_plan_raises(monkeypatch, cluster, schedulable):
         (3, BSZ, NY), (3, BSZ, NY), (3, BSZ, 2 * NZ), (3, BSZ, 2 * NZ),
         (3, BSZ, NZ), (3, BSZ, NH), (3, BSZ, NH)]
     assert list(args[7:14]) == [o.data_ptr() for o in outs]
+
+
+# -- the weight-gradient pass's tiles and plan --------------------------------
+
+def _model_shapes(ny, nz, nh_inf=256, nh=512, nlayers=4):
+    """(out, in) of q, p_z's and the dynamics' layers at these widths."""
+    def mlp(din, dout):
+        dims = [din] + [nh] * (nlayers - 1) + [dout]
+        return [(b, a) for a, b in zip(dims, dims[1:])]
+    return tuple([(2 * nz, nh_inf)] + mlp(ny, 2 * nz) + mlp(ny + nz, ny))
+
+
+DCGAN_SHAPES = _model_shapes(20, 20)
+KTH_SHAPES = _model_shapes(50, 50)
+TINY_SHAPES = _model_shapes(NY, NZ, NH_INF, NH, NLAYERS)
+
+
+@pytest.mark.parametrize("shapes", [DCGAN_SHAPES, KTH_SHAPES, TINY_SHAPES],
+                         ids=["dcgan", "kth", "tiny"])
+def test_wgrad_tiles_write_each_element_once(shapes):
+    """Every dW and db element of the flat gradient buffer is written by
+    exactly one tile (db by the tiles at i0 = 0); the tiles of a job follow
+    each other from tile0."""
+    n_pz = (len(shapes) - 1) // 2
+    jobs, sizes, n_grads, n_tiles = krt._wgrad_jobs(shapes, n_pz)
+    assert n_tiles == krt.wgrad_n_tiles(shapes)
+    written = np.zeros(n_grads, np.int64)
+    tile = 0
+    for job, shape in zip(jobs, shapes):
+        *_, w_off, b_off, din, dout, tile0, to, ti = job
+        assert (dout, din) == shape and tile0 == tile
+        tiles_i = -(-din // ti)
+        for t in range(-(-dout // to) * tiles_i):
+            o0, i0 = (t // tiles_i) * to, (t % tiles_i) * ti
+            assert o0 < dout and i0 < din          # no tile is all padding
+            o = np.arange(o0, min(o0 + to, dout))
+            i = np.arange(i0, min(i0 + ti, din))
+            written[w_off + (o[:, None] * din + i).reshape(-1)] += 1
+            if i0 == 0:
+                written[b_off + o] += 1
+            tile += 1
+    assert tile == n_tiles
+    np.testing.assert_array_equal(written, 1)
+
+
+@pytest.mark.parametrize("n_rows", [1, 15, 16, 17, 28, 100, 1792, 3800])
+@pytest.mark.parametrize("split", kr.CLUSTERS)
+def test_wgrad_rank_rows_partition(n_rows, split):
+    """The ranks' row ranges are contiguous, chunk-aligned, in rank order,
+    cover [0, N) once (N not a multiple of the chunk, or below S chunks:
+    some ranks get none), and differ by at most one chunk."""
+    ranks = krt.wgrad_rank_chunks(n_rows, split)
+    chunk = krt.WGRAD_CHUNK
+    assert len(ranks) == split
+    rows = [np.arange(c0 * chunk, min(c1 * chunk, n_rows)) for c0, c1 in ranks]
+    np.testing.assert_array_equal(np.concatenate(rows), np.arange(n_rows))
+    assert ranks[0][0] == 0 and ranks[-1][1] == -(-n_rows // chunk)
+    assert all(a[1] == b[0] for a, b in zip(ranks, ranks[1:]))
+    sizes = [c1 - c0 for c0, c1 in ranks]
+    assert max(sizes) - min(sizes) <= 1
+    # no chunk starts past N
+    assert all(c0 * chunk < n_rows for c0, c1 in ranks if c1 > c0)
+
+
+@pytest.mark.parametrize("shapes", [DCGAN_SHAPES, KTH_SHAPES],
+                         ids=["dcgan", "kth"])
+def test_wgrad_tiles_fit_the_layers(shapes):
+    """The 512 x 512 layers get 128 x 64 tiles; every block of a thin layer
+    (q, and each MLP's first and last) is at most half padding."""
+    tiles = krt.wgrad_tiles(shapes)
+    for shape, tile in zip(shapes, tiles):
+        assert tile in krt.WGRAD_TILES and tile[0] * tile[1] == \
+            krt.WGRAD_AREA
+        if shape == (512, 512):
+            assert tile == (128, 64)
+        useful = shape[0] * shape[1] / (krt._n_tiles(shape, tile)
+                                        * krt.WGRAD_AREA)
+        assert useful >= 0.5, (shape, tile, useful)
+    n_tiles = krt.wgrad_n_tiles(shapes)
+    assert n_tiles == (142 if shapes == DCGAN_SHAPES else 156)
+
+
+# H100 80GB HBM3: the weight-gradient pass's occupancy, (clusters of S
+# blocks the card holds at once, blocks an SM), by S (its occupancy
+# queries; PERF.md)
+WGRAD_H100 = {1: (264, 2), 2: (132, 2), 4: (62, 2), 8: (30, 2), 16: (14, 2)}
+
+
+def _fake_wgrad_query(resident, asked):
+    """A stand-in for the library's srvp_train_rollout_wgrad_occupancy that
+    answers resident[S] and records S in `asked`."""
+    def query(split, clusters, per_sm):
+        asked.append(split)
+        clusters._obj.value, per_sm._obj.value = resident.get(split, (0, 0))
+        return 0
+    return query
+
+
+@pytest.mark.parametrize("shapes,n_rows,split", [
+    (DCGAN_SHAPES, 128 * 14, 4),      # the dcgan training step
+    (KTH_SHAPES, 100 * 38, 8),        # the KTH training step
+    (TINY_SHAPES, 28, 2),             # two chunks: one a rank
+])
+def test_wgrad_plan_examples(monkeypatch, shapes, n_rows, split):
+    """The weight-gradient pass's plan at the training steps' rows with the
+    H100's occupancy: the split of least wgrad_cost over wgrad_tiles'
+    tiles; the card is asked once per split, then the plan is kept."""
+    dev = _fake_cuda(monkeypatch)
+    asked = []
+    monkeypatch.setattr(krt, "_lib", lambda: SimpleNamespace(
+        srvp_train_rollout_wgrad_occupancy=_fake_wgrad_query(WGRAD_H100,
+                                                             asked)))
+    plan = krt.wgrad_plan(shapes, n_rows, dev)
+    assert plan == split
+    assert sorted(asked) == sorted(kr.CLUSTERS)
+    assert krt.wgrad_plan(shapes, n_rows, dev) == plan
+    assert len(asked) == len(kr.CLUSTERS)
+    n_tiles = krt.wgrad_n_tiles(shapes)
+    costs = {s: krt.wgrad_cost(n_tiles, n_rows, s, *WGRAD_H100[s])
+             for s in kr.CLUSTERS}
+    assert costs[split] == min(costs.values())
+
+
+def test_wgrad_cost():
+    """Blocks over the SMs that the clusters fill, each its rank's chunks
+    and the fixed cost: at dcgan's 142 tiles and 112 chunks, S = 4 runs 5
+    blocks an SM of 28 chunks on the 124 SMs of 62 clusters; no cluster, no
+    cost."""
+    over = krt.WGRAD_OVERHEAD_CHUNKS
+    assert krt.wgrad_cost(142, 1792, 4, 62, 2) == 5 * (28 + over)
+    assert krt.wgrad_cost(142, 1792, 1, 264, 2) == 2 * (112 + over)
+    assert krt.wgrad_cost(142, 1792, 8, 15, 1) == 10 * (14 + over)
+    assert krt.wgrad_cost(142, 1792, 16, 0, 0) is None
+
+
+def test_wgrad_unschedulable_plan_raises(monkeypatch):
+    """A split the card holds no cluster of raises at the launch's guard;
+    a card that holds none at any split has no plan."""
+    dev = _fake_cuda(monkeypatch)
+    resident = {1: (132, 1), 2: (66, 1)}
+    monkeypatch.setattr(krt, "_lib", lambda: SimpleNamespace(
+        srvp_train_rollout_wgrad_occupancy=_fake_wgrad_query(resident, [])))
+    assert krt.wgrad_resident(2, dev) == 66
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        krt.wgrad_resident(16, dev)
+    assert krt.wgrad_plan(DCGAN_SHAPES, 1792, dev) in (1, 2)
+    monkeypatch.setattr(krt, "_wgrad_occupancy", {})
+    monkeypatch.setattr(krt, "_lib", lambda: SimpleNamespace(
+        srvp_train_rollout_wgrad_occupancy=_fake_wgrad_query({}, [])))
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        krt.wgrad_plan(KTH_SHAPES, 3800, dev)
 
 
 # -- column slices and the packed layout -------------------------------------
@@ -412,11 +569,13 @@ def emulate_train_forward(q, pz, dyn, y0, hxz, eps, n_ranks, rows,
     return outs
 
 
-def emulate_train_backward(q, pz, dyn, y0, hxz, eps, cots, n_ranks, rows):
+def emulate_train_backward(q, pz, dyn, y0, hxz, eps, cots, n_ranks, rows,
+                           split=None):
     """csrc/rollout_train.cu's carry pass on tiles of `rows` rows (the
     forward and its stashes in numpy, as kernel 2 computes them), then the
-    weight-gradient pass by the wrapper's job table. Returns the gradients
-    of y0, hxz and every weight and bias, in flat (w, b) order."""
+    weight-gradient pass by the wrapper's job table in clusters of `split`
+    blocks (emulate_wgrad; default n_ranks). Returns the gradients of y0,
+    hxz and every weight and bias, in flat (w, b) order."""
     layers = [q] + pz + dyn
     n_pz, n_dyn = len(pz), len(dyn)
     npl = [(w.numpy(), b.numpy()) for w, b in layers]
@@ -521,25 +680,94 @@ def emulate_train_backward(q, pz, dyn, y0, hxz, eps, cots, n_ranks, rows):
         g_y0[sl] = gy[0][:n]
     assert not any(np.isnan(a).any() for a in (g_pz, g_dyn, g_hxz))
 
-    # the weight-gradient pass, job by job
+    # the weight-gradient pass, tile by tile and rank by rank
     y_in = np.concatenate([y0[None], ys[:-1]])
     a_src = [hxz, np.concatenate([y_in, zs], -1), st_p, st_d]
-    g_src = [g_q, g_pz, g_dyn]
-    jobs, sizes, n_grads, _ = krt._wgrad_table(
-        krt._shapes(layers), n_pz, NY, NZ, NH_INF, torch.device("cpu"))
-    grads = np.zeros(n_grads, np.float32)
+    flat = emulate_wgrad(krt._shapes(layers), n_pz, a_src,
+                         [g_q, g_pz, g_dyn], split or n_ranks)
+    return [g_y0, g_hxz] + flat
+
+
+def _kahan(s, c, x):
+    """csrc kahan_add on float32 arrays, elementwise."""
+    y = (x - c).astype(np.float32)
+    t = (s + y).astype(np.float32)
+    return t, ((t - s) - y).astype(np.float32)
+
+
+def emulate_wgrad(shapes, n_pz, a_src, g_src, split):
+    """The weight-gradient pass (train_rollout_wgrad_kernel) by the
+    wrapper's job table: every tile of every job, each of the `split` ranks
+    of its cluster summing its chunks of rows (krt.wgrad_rank_chunks) in
+    order, fp32 products within a chunk and the chunks Kahan-summed; db on
+    the tiles at i0 = 0, each column's 256 / TO threads taking every
+    (256 / TO)-th row of a chunk; then each element combined from the ranks'
+    partials in rank order (compensations summed, then the sums
+    Kahan-added). Checks that every element of the gradient buffer is
+    written once. Returns [dW, db] per layer."""
+    jobs, sizes, n_grads, n_tiles = krt._wgrad_jobs(shapes, n_pz)
+    n_rows = g_src[0].shape[0] * g_src[0].shape[1]
+    ranks = krt.wgrad_rank_chunks(n_rows, split)
+    chunk = krt.WGRAD_CHUNK
+    grads = np.full(n_grads, np.nan, np.float32)
+    count = 0
     for (a_i, a_ld, a_off, relu, g_i, g_ld, g_off, w_off, b_off, din, dout,
-         _) in jobs.tolist():
+         tile0, to, ti) in jobs:
+        assert tile0 == count
         a = a_src[a_i].reshape(-1, a_ld)[:, a_off:a_off + din]
         a = np.maximum(a, 0) if relu else a
         g = g_src[g_i].reshape(-1, g_ld)[:, g_off:g_off + dout]
-        grads[w_off:w_off + dout * din] = (g.T @ a).reshape(-1)
-        grads[b_off:b_off + dout] = g.sum(0)
+        dw = grads[w_off:w_off + dout * din].reshape(dout, din)
+        db = grads[b_off:b_off + dout]
+        tiles_i = -(-din // ti)
+        n_job = -(-dout // to) * tiles_i
+        count += n_job
+        n_thr = krt.WGRAD_THREADS // to         # threads a column of db
+        for t in range(n_job):
+            o0, i0 = (t // tiles_i) * to, (t % tiles_i) * ti
+            gt, at = g[:, o0:o0 + to], a[:, i0:i0 + ti]
+            shape_w, shape_b = (gt.shape[1], at.shape[1]), (n_thr, gt.shape[1])
+            parts = []
+            for c0, c1 in ranks:
+                acc, comp = (np.zeros(shape_w, np.float32) for _ in range(2))
+                dacc, dcomp = (np.zeros(shape_b, np.float32) for _ in range(2))
+                for c in range(c0, c1):
+                    rows_c = slice(c * chunk, min((c + 1) * chunk, n_rows))
+                    part = (gt[rows_c].T @ at[rows_c]).astype(np.float32)
+                    acc, comp = _kahan(acc, comp, part)
+                    if i0 == 0:
+                        dpart = np.zeros(shape_b, np.float32)
+                        for kk, row in enumerate(range(rows_c.start,
+                                                       rows_c.stop)):
+                            dpart[kk % n_thr] += gt[row]
+                        dacc, dcomp = _kahan(dacc, dcomp, dpart)
+                parts.append((acc, comp, dacc, dcomp))
+            c = np.zeros(shape_w, np.float32)
+            for part in parts:
+                c = (c + part[1]).astype(np.float32)
+            total = np.zeros(shape_w, np.float32)
+            for part in parts:
+                total, c = _kahan(total, c, part[0])
+            dst = dw[o0:o0 + to, i0:i0 + ti]
+            assert np.isnan(dst).all()
+            dst[:] = total
+            if i0 == 0:
+                c, total = (np.zeros(shape_b[1], np.float32)
+                            for _ in range(2))
+                for part in parts:
+                    for q in range(n_thr):
+                        c = (c + part[3][q]).astype(np.float32)
+                for part in parts:
+                    for q in range(n_thr):
+                        total, c = _kahan(total, c, part[2][q])
+                assert np.isnan(db[o0:o0 + to]).all()
+                db[o0:o0 + to] = total
+    assert count == n_tiles and not np.isnan(grads).any()
     flat = []
     for w_off, dout, din, b_off in sizes:
         flat += [grads[w_off:w_off + dout * din].reshape(dout, din),
                  grads[b_off:b_off + dout]]
-    return [g_y0, g_hxz] + flat
+    return flat
 
 
 def _loss(outs):
@@ -702,6 +930,86 @@ def test_cluster_carry_pass_matches_references(case, n_ranks, rows):
         for other, name in ((b.numpy(), "autograd"), (c, "jax")):
             np.testing.assert_allclose(a, other, rtol=GRAD_RTOL,
                                        atol=GRAD_ATOL, err_msg=f"{name} {i}")
+
+
+# (out, in) of layers wider than a tile (two 128 x 64 tiles, a 64 x 128
+# one, a 256 x 32 one) and narrower, all with ragged edges
+WIDE_SHAPES = ((2 * NZ, 70), (70, NY), (70, 70), (2 * NZ, 70),
+               (70, NY + NZ), (300, 70), (NY, 300))
+
+
+def _wgrad_against_plain(n_steps, bsz, split):
+    """emulate_wgrad on seeded N(0, 1) sources of WIDE_SHAPES, against
+    weight_gradients (the plain version on CPU tensors) and a float64 run
+    of it, at rtol 5e-4 / atol 5e-6."""
+    rng = np.random.RandomState(11)
+    n_pz = 3
+    shapes = WIDE_SHAPES
+    widths_a, widths_g = krt.wgrad_source_widths(shapes, n_pz)
+    a_src = [rng.randn(n_steps, bsz, w).astype(np.float32) for w in widths_a]
+    g_src = [rng.randn(n_steps, bsz, w).astype(np.float32) for w in widths_g]
+    got = emulate_wgrad(shapes, n_pz, a_src, g_src, split)
+    plain = krt.weight_gradients([tuple(s) for s in shapes], n_pz,
+                                 [torch.from_numpy(a) for a in a_src],
+                                 [torch.from_numpy(g) for g in g_src])
+    f64 = krt.weight_gradients_reference(
+        shapes, n_pz, [torch.from_numpy(a).double() for a in a_src],
+        [torch.from_numpy(g).double() for g in g_src])
+    assert [x.shape for x in got] == [tuple(x.shape) for x in plain]
+    for i, (a, b, c) in enumerate(zip(got, plain, f64)):
+        for other, name in ((b.numpy(), "plain"), (c.numpy(), "float64")):
+            np.testing.assert_allclose(a, other, rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL, err_msg=f"{name} {i}")
+
+
+@pytest.mark.parametrize("n_steps,bsz", [(3, 37), (2, 5), (5, 64)])
+@pytest.mark.parametrize("split", kr.CLUSTERS)
+def test_cluster_wgrad_pass_matches_plain(n_steps, bsz, split):
+    """The weight-gradient pass emulated tile by tile and rank by rank (N =
+    111, 10 and 320 rows: a partial last chunk, fewer chunks than ranks,
+    whole chunks) against its plain version and a float64 run of the same
+    products, at rtol 5e-4 / atol 5e-6, on stash sources with negative
+    values (the ReLU) and layers spanning several tiles."""
+    _wgrad_against_plain(n_steps, bsz, split)
+
+
+@pytest.mark.parametrize("job,field,delta", [
+    (2, 3, -1),     # p_z's second layer without its ReLU
+    (5, 2, 4),      # the dynamics' second layer, stash columns moved
+    (4, 6, 4),      # the dynamics' first layer, cotangent columns moved
+], ids=["relu", "a_off", "g_off"])
+def test_wgrad_plain_catches_a_wrong_route(monkeypatch, job, field, delta):
+    """The plain version takes each layer's columns from the layer shapes,
+    not from the kernel's job table: a job that reads the wrong source
+    columns, or drops its ReLU, disagrees with it."""
+    real = krt._wgrad_jobs.__wrapped__
+
+    def moved(*args):
+        jobs, sizes, n_grads, n_tiles = real(*args)
+        jobs = [list(j) for j in jobs]
+        jobs[job][field] += delta
+        return tuple(map(tuple, jobs)), sizes, n_grads, n_tiles
+    monkeypatch.setattr(krt, "_wgrad_jobs", moved)
+    with pytest.raises(AssertionError):
+        _wgrad_against_plain(2, 5, 2)
+
+
+def test_wgrad_emulation_catches_a_wrong_tile(monkeypatch):
+    """The emulation reads the tiles through the job table: a job whose
+    first tile is off by one fails it."""
+    real = krt._wgrad_jobs.__wrapped__
+
+    def shifted(*args):
+        jobs, sizes, n_grads, n_tiles = real(*args)
+        jobs = [list(j) for j in jobs]
+        jobs[2][11] += 1
+        return tuple(map(tuple, jobs)), sizes, n_grads, n_tiles
+    monkeypatch.setattr(krt, "_wgrad_jobs", shifted)
+    rng = np.random.RandomState(0)
+    a_src = [rng.randn(1, 10, w).astype(np.float32) for w in (70, 10, 140, 370)]
+    g_src = [rng.randn(1, 10, w).astype(np.float32) for w in (8, 148, 376)]
+    with pytest.raises(AssertionError):
+        emulate_wgrad(WIDE_SHAPES, 3, a_src, g_src, 2)
 
 
 def test_emulation_catches_a_wrong_slice(case, monkeypatch):
