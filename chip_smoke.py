@@ -41,7 +41,10 @@ Phases, each of which fails the script:
      every site of the KTH training step (N = 2000 frames), half of the
      frames quantised with flat 2x2 windows so that ties occur, and two
      planted NaNs: bit-equal to the plain version; times beside the plain
-     version's, the library call's and the bytes bound;
+     version's, the library call's and the bytes bound; then the same in
+     bfloat16 (the bfloat16 entry points, float32 inside with one
+     rounding), against the bfloat16 plain versions and library calls and
+     the bfloat16 bytes bound;
   6. main path, dcgan evaluation: the evaluation CLI
      (srvp_tpu_torch.test_main) at the full width of the Stochastic Moving
      MNIST dcgan model with seeded random weights, on synthetic
@@ -75,7 +78,23 @@ Phases, each of which fails the script:
      seeded with CHECK_STATE_SEED (the trained state differs from run to
      run; its readings are printed, not held); then test_main serves the
      model.pt;
- 10. kernel vs plain, conv stage (kernels 8-9): kernel 8 in fp32 at every
+ 10. main path, bfloat16 training: the trainer CLI with --precision
+     bfloat16 on both models at the widths and batches of 7 and 9 (dcgan
+     8 steps, KTH 6), the vgg pools and upsamples through the kernels'
+     bfloat16 versions (exact launch counts of every kernel, the float32
+     spatial kernels launched no time), finite losses, ms per step and peak
+     memory printed beside the float32 runs'; then one step on the seeded
+     state through the kernels and through the eager rollout and plain
+     pools and upsamples on the same kink-free draws: every gradient in L2
+     norm within BF16_STEP_NORM_LIMIT (16) of (atol + 2^-8 ||g||),
+     bfloat16's unit roundoff, and the loss at rtol 2^-10, the eager bf16
+     step's distance to the fp32 one printed beside, and the same step
+     with kernel 3's gradients scaled by 1 + 2^-3 (a planted fault) must
+     fail (check_step in bfloat16); test_main serves the model.pt;
+ 11. main path, the port's bench: python -m srvp_tpu_torch.bench at
+     reduced steps (BENCH_ARGS): its JSON line (printed) holds finite
+     numbers and an mfu in (0, 1] for both configurations;
+ 12. kernel vs plain, conv stage (kernels 8-9): kernel 8 in fp32 at every
      3x3 conv site of the KTH vgg model (19, encoder and decoder with skip
      connections) at N = 2000 frames, the first as the frame enters (no
      transform, act none), the others with the normalize and LeakyReLU on
@@ -91,7 +110,7 @@ Phases, each of which fails the script:
      (fp32: three TF32 products a term at the TF32 rate, and beside it the
      CUDA cores' fp32 FMA; bf16: the bf16 rate, and beside it one TF32
      product a term) and the TFLOP/s;
- 11. main path, conv stage: the port's bench (srvp_tpu_torch.
+ 13. main path, conv stage: the port's bench (srvp_tpu_torch.
      bench_conv_stage) at the workhorse shape for kernels 8 and 9 in fp32
      and bf16, chained, beside cuDNN; then the two-block chain of
      tests/test_conv_stage.py:51-91 at the full size of KTH encoder stage 0
@@ -116,7 +135,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from srvp_tpu_torch import bench_conv_stage, test_main, train_lib, train_main
+from srvp_tpu_torch import (bench, bench_conv_stage, test_main, train_lib,
+                            train_main)
 from srvp_tpu_torch.config import model_config, strict_fp32
 from srvp_tpu_torch.data.device_compose import materialize, to_device
 from srvp_tpu_torch.kernels import build as kbuild
@@ -191,6 +211,27 @@ KTH_CHECK_VIDEOS = 25
 # substeps of 3,072 hidden units a row, nearly every row has a hidden
 # pre-activation within the default 1e-5 of a layer's largest value
 KTH_KINK_MARGIN = 1e-6
+# the bfloat16 steps (--precision bfloat16): the trainer at the same
+# widths and batches for fewer steps. The one-step check holds the loss of
+# the kernel step against the eager one at BF16_LOSS_RTOL, a quarter of
+# bfloat16's unit roundoff u = 2^-8, and every gradient in L2 norm within
+# BF16_STEP_NORM_LIMIT (atol + u ||g||): 16 unit roundoffs, where a bf16
+# step's gradients lie 31-89 of them from the fp32 step's and the kernel
+# step's 0.4-6.8 from the eager one's (H100 80GB HBM3, PERF.md §6). Its
+# control, kernel 3's gradients scaled by 1 + BF16_FAULT (32 unit
+# roundoffs), must fail it
+TRAIN_STEPS_BF16, TRAIN_WARMUP_BF16 = 8, 3
+KTH_TRAIN_STEPS_BF16, KTH_TRAIN_WARMUP_BF16 = 6, 2
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
+BF16_LOSS_RTOL = 2.0 ** -10
+BF16_STEP_NORM_LIMIT = 16.0
+BF16_FAULT = 2.0 ** -3
+BF16_STEP_HELD = [("latent", "norm", BF16_STEP_NORM_LIMIT),
+                  ("conv", "norm", BF16_STEP_NORM_LIMIT)]
+# the trainer's --precision values
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the port's bench (srvp_tpu_torch.bench) at reduced steps
+BENCH_ARGS = ["--steps", "3", "--warmup", "2", "--rollout_iters", "2"]
 # the vgg pool and upsample sites of the KTH model, (channels, input
 # height = width), at the KTH training step's N = 100 x 20 frames
 POOL_SITES = [(64, 64), (128, 32), (256, 16), (512, 8)]
@@ -577,10 +618,11 @@ def check_train_rollout(name, q_layer, pz_layers, dyn_layers, bsz, n_steps,
 
 
 def bit_equal(a, b):
-    """Same shape and the same bits everywhere, a NaN matching any NaN."""
-    if a.shape != b.shape:
+    """Same shape, dtype and bits everywhere, a NaN matching any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    same = (a.view(torch.int32) == b.view(torch.int32)) \
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    same = (a.view(view) == b.view(view)) \
         | (torch.isnan(a) & torch.isnan(b))
     return bool(same.all())
 
@@ -591,11 +633,11 @@ def max_abs_diff(a, b):
     return float((a[ok] - b[ok]).abs().max()) if ok.any() else 0.0
 
 
-def tied_input(shape, gen):
-    """N(0, 1) fp32 (N, C, H, W) on the card whose first half of frames is
-    quantised to 1/8 with a quarter of its 2x2 windows flat (one value), so
-    that pooling windows hold ties, and with a NaN planted in a flat window
-    of frame 0 and in frame N-1."""
+def tied_input(shape, gen, dtype=torch.float32):
+    """N(0, 1) (N, C, H, W) on the card, in `dtype`, whose first half of
+    frames is quantised to 1/8 with a quarter of its 2x2 windows flat (one
+    value), so that pooling windows hold ties, and with a NaN planted in a
+    flat window of frame 0 and in frame N-1."""
     x = torch.randn(shape, generator=gen, device="cuda")
     n, c, h, w = shape
     half = max(n // 2, 1)
@@ -608,21 +650,23 @@ def tied_input(shape, gen):
                            corner, q)
     x[0, 0, 0, 1] = float("nan")
     x[-1, -1, -1, -1] = float("nan")
-    return x
+    return x.to(dtype)
 
 
-def spatial_site(kind, n, c, hw, gen):
-    """The kernels of one vgg pool (4, 5) or upsample (6, 7) site against
-    their plain versions, bit for bit, with CUDA-event times beside the
-    plain versions', the library calls' and the bytes bound. Returns the
-    forward's and the backward's rows."""
-    x = tied_input((n, c, hw, hw), gen)
+def spatial_site(kind, n, c, hw, gen, dtype=torch.float32):
+    """The kernels of one vgg pool (4, 5) or upsample (6, 7) site in
+    `dtype` against their plain versions, bit for bit, with CUDA-event times
+    beside the plain versions', the library calls' (in the same dtype) and
+    the bytes bound. Returns the forward's and the backward's rows."""
+    x = tied_input((n, c, hw, hw), gen, dtype)
     n_in = x.numel()
+    randn = lambda shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device="cuda").to(dtype)
     xr = x.detach().requires_grad_()
     if kind == "pool":
         out = krspatial.max_pool2x2(x)
         ref = krspatial.max_pool2x2_reference(x)
-        g = torch.randn(out.shape, generator=gen, device="cuda")
+        g = randn(out.shape)
         gx = krspatial.max_pool2x2_bwd(x, out, g)
         gx_ref = krspatial.max_pool2x2_bwd_reference(x, ref, g)
         mask = (x == krspatial.upsample2x_reference(ref)).float()
@@ -638,7 +682,7 @@ def spatial_site(kind, n, c, hw, gen):
     else:
         out = krspatial.upsample2x(x)
         ref = krspatial.upsample2x_reference(x)
-        g = torch.randn(out.shape, generator=gen, device="cuda")
+        g = randn(out.shape)
         gx = krspatial.upsample2x_bwd(g)
         gx_ref = krspatial.upsample2x_bwd_reference(g)
         tied = 0
@@ -660,26 +704,28 @@ def spatial_site(kind, n, c, hw, gen):
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         rows.append(dict(
             kernel=f"{'maxpool' if kind == 'pool' else 'upsample'}_{part}",
+            dtype=str(dtype).split(".")[-1],
             shape=[n, c, hw, hw], bit_equal=bit_equal(a, b),
             nan_where_plain_nan=bool(torch.equal(torch.isnan(a),
                                                  torch.isnan(b))),
             nans=int(torch.isnan(b).sum()), tied_windows=tied,
-            max_abs_err=max_abs_diff(a, b), ms=ms, plain_ms=plain_ms,
-            library_ms=cuda_ms(lib), bound_ms=1e3 * 4 * elems
-            / PEAK_HBM_BYTES, bound_by="bytes"))
+            max_abs_err=max_abs_diff(a.float(), b.float()), ms=ms,
+            plain_ms=plain_ms, library_ms=cuda_ms(lib),
+            bound_ms=1e3 * x.element_size() * elems / PEAK_HBM_BYTES,
+            bound_by="bytes"))
         print("spatial_check " + json.dumps(rows[-1]), flush=True)
     return rows
 
 
-def check_spatial(n_frames, seed):
-    """Kernels 4-7 at every vgg site of the KTH step (N frames); fails
-    unless each is bit-equal to its plain version, planted NaNs
+def check_spatial(n_frames, seed, dtype=torch.float32):
+    """Kernels 4-7 in `dtype` at every vgg site of the KTH step (N frames);
+    fails unless each is bit-equal to its plain version, planted NaNs
     included. Returns {kernel: row at its largest site}."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     largest = {}
     for kind, sites in (("pool", POOL_SITES), ("up", UP_SITES)):
         for c, hw in sites:
-            for row in spatial_site(kind, n_frames, c, hw, gen):
+            for row in spatial_site(kind, n_frames, c, hw, gen, dtype):
                 # every output but upsample_bwd's sees the planted NaNs
                 planted = row["nans"] > 0 or row["kernel"] == "upsample_bwd"
                 ties = row["tied_windows"] > 0 or kind == "up"
@@ -1051,14 +1097,18 @@ def write_test_set(cfg, data_dir, n_videos, nt_test, seed):
                             sequences=seqs)
 
 
+# the kernels line's name of each spatial kernel (kernels/spatial.py's key)
+SPATIAL_NAMES = {"pool_fwd": "maxpool_fwd", "pool_bwd": "maxpool_bwd",
+                 "up_fwd": "upsample_fwd", "up_bwd": "upsample_bwd"}
+
+
 def launch_counts():
     return dict(prior_rollout=krollout.launches,
                 train_rollout_fwd=krollout_train.fwd_launches,
                 train_rollout_bwd=krollout_train.bwd_launches,
-                maxpool_fwd=krspatial.pool_fwd_launches,
-                maxpool_bwd=krspatial.pool_bwd_launches,
-                upsample_fwd=krspatial.up_fwd_launches,
-                upsample_bwd=krspatial.up_bwd_launches,
+                **{SPATIAL_NAMES[k] + ("_bf16" if d == torch.bfloat16
+                                       else ""): n
+                   for (k, d), n in krspatial.launches.items()},
                 conv3x3_block=kcs.block_launches,
                 conv3x3_clamped=kcs.clamped_launches)
 
@@ -1066,8 +1116,7 @@ def launch_counts():
 def reset_launch_counts():
     krollout.launches = 0
     krollout_train.fwd_launches = krollout_train.bwd_launches = 0
-    krspatial.pool_fwd_launches = krspatial.pool_bwd_launches = 0
-    krspatial.up_fwd_launches = krspatial.up_bwd_launches = 0
+    krspatial.reset_launches()
     kcs.block_launches = kcs.clamped_launches = 0
 
 
@@ -1185,17 +1234,17 @@ def run_cli(xp_dir, data_dir, fused, nt_test, n_samples=N_SAMPLES,
 
 
 def train_args(save_path, data_dir, n_steps, fused="on", cfg=XP_CONFIG,
-               batch_size=TRAIN_BATCH):
+               batch_size=TRAIN_BATCH, precision="float32"):
     """The trainer's flags at cfg's width and training protocol: for the
     dcgan flagship, bench.py's smmnist-dcgan cell (batch 128, seq_len 15,
     o = 1) on synthetic digits; for kth-vgg, configs/kth.yaml (batch 100,
-    seq_len 20, o = 2)."""
+    seq_len 20, o = 2); `precision` is the trainer's --precision."""
     flags = dict(dataset=cfg["dataset"], data_dir=data_dir,
                  save_path=save_path, batch_size=batch_size, n_iter=n_steps,
                  log_interval=1, val_interval=n_steps, n_iter_test=1,
                  batch_size_test=BATCH, n_samples_test=CHUNK,
                  val_samples_chunk=CHUNK, seed=SEED + 1, device="cuda",
-                 fused_rollout=fused)
+                 fused_rollout=fused, precision=precision)
     for k in ("nc", "nx", "nf", "nhx", "ny", "nz", "nt_inf", "nh_inf",
               "nlayers_inf", "nh_res", "nlayers_res", "n_euler_steps",
               "nt_cond", "seq_len", "seq_len_test", "archi", "obs_scale",
@@ -1245,25 +1294,38 @@ def kink_free_step_noise(model, x, oversampling, gen, margin):
     return noise
 
 
-def step_grads(opt, state_dict, x, noise, use_kernel, dtype, tf32=False):
+def step_grads(opt, state_dict, x, noise, use_kernel, dtype,
+               compute_dtype=None, tf32=False, fault=0.0):
     """Loss and parameter gradients of one training step from
-    `state_dict` on the float batch x with the given draws, in `dtype`
-    (with TF32 matmuls and convs if `tf32`): through every kernel (the
+    `state_dict` on the float batch x with the given draws, the model in
+    `dtype` and its encoder and decoder in `compute_dtype` (`dtype` when
+    None; with TF32 matmuls and convs if `tf32`): through every kernel (the
     training rollout's and, on vgg, the pools' and upsamples'), or through
-    the eager rollout and the plain pools and upsamples."""
+    the eager rollout and the plain pools and upsamples. A `fault` scales
+    kernel 3's gradients by 1 + fault (a planted fault)."""
     hp = dataclasses.replace(train_main.train_hparams(opt),
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel,
+                             compute_dtype=compute_dtype or dtype)
     model = SRVP(model_config(vars(opt))).cuda().to(dtype).train()
     model.load_state_dict(state_dict)
     krspatial.use_kernels(model, use_kernel)
     noise = {k: v.to(dtype) if v.is_floating_point() else v
              for k, v in noise.items()}
+    rollout_bwd = krollout_train.TrainRollout.backward
+
+    def faulty(ctx, *grads):
+        return tuple(None if g is None else g * (1 + fault)
+                     for g in rollout_bwd(ctx, *grads))
+
+    if fault:
+        krollout_train.TrainRollout.backward = staticmethod(faulty)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     try:
         loss, _ = train_lib.loss_and_grads(model, x.to(dtype), hp, **noise)
     finally:
         strict_fp32()
+        krollout_train.TrainRollout.backward = staticmethod(rollout_bwd)
     return loss.item(), {k: p.grad for k, p in model.named_parameters()}
 
 
@@ -1271,29 +1333,57 @@ def is_conv_param(name):
     return name.split(".")[0] in ("encoder", "decoder")
 
 
-def check_step(opt, state_dict, batch, margin, held, hold=True):
-    """One training step from the trainer's final state through the kernels
-    and through the eager rollout and plain pools and upsamples, on the
-    same kink-free draws (`margin`), with cuDNN held to deterministic
+# the one-step check in each compute dtype (check_step): the unit of a
+# gradient reading, atol + rtol ||g||; the loss's rtol; the eager step that
+# the eager one is printed against (its name and step_grads' arguments);
+# the control (likewise), and how many held checks it must fail
+STEP_CHECKS = {
+    torch.float32: dict(
+        rtol=STEP_GRAD_RTOL, loss_rtol=STEP_LOSS_RTOL,
+        reference=("f64_eager", dict(use_kernel=False, dtype=torch.float64,
+                                     compute_dtype=torch.float64)),
+        control=("tf32", dict(use_kernel=False, tf32=True)),
+        control_fails="every"),
+    torch.bfloat16: dict(
+        rtol=BF16_UNIT_ROUNDOFF, loss_rtol=BF16_LOSS_RTOL,
+        reference=("fp32_eager", dict(use_kernel=False,
+                                      compute_dtype=torch.float32)),
+        control=("fault", dict(use_kernel=True, fault=BF16_FAULT)),
+        control_fails="some"),
+}
+
+
+def check_step(opt, state_dict, batch, margin, held, hold=True,
+               compute_dtype=torch.float32):
+    """One training step from `state_dict`, its encoder and decoder in
+    `compute_dtype` (the trainer's --precision), through the kernels and
+    through the eager rollout and plain pools and upsamples, on the same
+    kink-free draws (`margin`), with cuDNN held to deterministic
     algorithms (its default ones are not: the eager step rerun with them is
-    printed), and the eager step again in float64.
+    printed), and a reference and a control step (STEP_CHECKS).
 
-    The loss must agree to rtol 1e-4. The gradients are held directly
-    against the eager step at rtol 5e-3 / atol 5e-5, in units of which each
-    reading is printed, as `held` says (DCGAN_STEP_HELD, KTH_STEP_HELD) by
-    group: "latent" (each parameter outside the encoder and decoder: q_z,
-    p_z and dynamics, which the kernels write, and the networks that dy0
-    and dhxz flow into) and "conv" (the encoder's and decoder's), each
-    gradient "elementwise" or in L2 "norm", ||g_kernel - g_eager|| <=
-    limit (atol + rtol ||g_eager||). A conv gradient is a BN-centred sum
-    over every frame of the batch and up to 4096 positions that fp32
-    resolves in norm only; on KTH no gradient is resolved element by
-    element. The eager fp32 step's distance to the float64 one is printed
-    beside, by group, in both readings.
+    The loss must agree to the dtype's loss rtol (1e-4; bfloat16 2^-10).
+    The gradients are held directly against the eager step in units of
+    atol + rtol ||g_eager||, atol 5e-5 and rtol 5e-3 (bfloat16: its unit
+    roundoff 2^-8), in which each reading is printed, as `held` says
+    (DCGAN_STEP_HELD, KTH_STEP_HELD, BF16_STEP_HELD) by group: "latent"
+    (each parameter outside the encoder and decoder: q_z, p_z and dynamics,
+    which the kernels write, and the networks that dy0 and dhxz flow into)
+    and "conv" (the encoder's and decoder's), each gradient "elementwise"
+    or in L2 "norm", ||g_kernel - g_eager|| <= limit (atol + rtol
+    ||g_eager||). A conv gradient is a BN-centred sum over every frame of
+    the batch and up to 4096 positions that fp32 resolves in norm only; on
+    KTH no gradient is resolved element by element. The eager step's
+    distance to the reference step is printed beside, by group, in both
+    readings: in float32 the eager step in float64, in bfloat16 the eager
+    float32 step.
 
-    The eager step with TF32 matmuls and convs is the control: it must fail
-    each check that is held, or the checks could not tell a lower-precision
-    step. With `hold` off the readings are returned, not held."""
+    The control must fail the held checks, or the check could not tell a
+    faulty step: in float32 the eager step with TF32 matmuls and convs
+    must fail each of them; in bfloat16 the kernel step with kernel 3's
+    gradients scaled by 1 + BF16_FAULT (32 unit roundoffs) must fail one.
+    With `hold` off the readings are returned, not held."""
+    spec = STEP_CHECKS[compute_dtype]
     x = materialize(batch, opt.nx)
     model = SRVP(model_config(vars(opt))).cuda()
     model.load_state_dict(state_dict)
@@ -1301,23 +1391,28 @@ def check_step(opt, state_dict, batch, margin, held, hold=True):
                                  torch.Generator(device="cuda")
                                  .manual_seed(SEED + 2), margin)
     del model
+
+    def grads(use_kernel, dtype=torch.float32, **kw):
+        kw.setdefault("compute_dtype", compute_dtype)
+        return step_grads(opt, state_dict, x, noise, use_kernel, dtype, **kw)
+
     # the eager step twice with cuDNN's default algorithms
-    default = [step_grads(opt, state_dict, x, noise, False, torch.float32)[1]
-               for _ in range(2)]
-    spread = max(_worst(default[0][k], default[1][k], STEP_GRAD_RTOL,
+    default = [grads(False)[1] for _ in range(2)]
+    spread = max(_worst(default[0][k], default[1][k], spec["rtol"],
                         STEP_GRAD_ATOL)[1] for k in default[0])
     del default
+    (ref, ref_kw), (control, control_kw) = spec["reference"], spec["control"]
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        runs = [step_grads(opt, state_dict, x, noise, use_kernel, dtype, tf32)
-                for use_kernel, dtype, tf32 in (
-                    (True, torch.float32, False), (False, torch.float32, False),
-                    (False, torch.float64, False), (False, torch.float32, True))]
+        runs = {arm: grads(**kw) for arm, kw in (
+            ("kernel", dict(use_kernel=True)), ("eager", dict(use_kernel=False)),
+            (ref, ref_kw), (control, control_kw))}
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    (loss_k, g_k), (loss_e, g_e), (loss_64, g_64), (loss_tf, g_tf) = runs
-    tol = lambda g: STEP_GRAD_ATOL + STEP_GRAD_RTOL * g.norm()  # noqa: E731
+    loss_k, g_k = runs["kernel"]
+    loss_e, g_e = runs["eager"]
+    tol = lambda g: STEP_GRAD_ATOL + spec["rtol"] * g.norm()  # noqa: E731
     groups = {"latent": [k for k in g_e if not is_conv_param(k)],
               "conv": [k for k in g_e if is_conv_param(k)]}
 
@@ -1328,7 +1423,7 @@ def check_step(opt, state_dict, batch, margin, held, hold=True):
             norm={k: ((g[k].to(ref[k].dtype) - ref[k]).norm()
                       / tol(ref[k])).item() for k in g},
             elementwise={k: _worst(g[k].to(ref[k].dtype), ref[k],
-                                   STEP_GRAD_RTOL, STEP_GRAD_ATOL)[1]
+                                   spec["rtol"], STEP_GRAD_ATOL)[1]
                          for k in g})
 
     def worst(d, group):
@@ -1336,16 +1431,16 @@ def check_step(opt, state_dict, batch, margin, held, hold=True):
 
     top = lambda d, group: sorted(((k, d[k]) for k in groups[group]),  # noqa
                                   key=lambda kv: -kv[1])[:3]
-    step = dict(step_videos=int(x.shape[1]), step_loss_kernel=loss_k,
-                step_loss_eager=loss_e, step_loss_f64=loss_64,
-                step_loss_tf32=loss_tf,
+    step = dict(step_videos=int(x.shape[1]),
+                step_compute_dtype=str(compute_dtype).split(".")[-1],
+                **{f"step_loss_{arm}": run[0] for arm, run in runs.items()},
                 step_loss_rel_diff=abs(loss_k - loss_e) / abs(loss_e),
                 step_held=[f"{g}_{kind} <= {limit}" for g, kind, limit
                            in held])
     failed = {}
-    for arm, g, ref in (("step", g_k, g_e), ("tf32", g_tf, g_e),
-                        ("f64_eager", g_e, g_64)):
-        r = readings(g, ref)
+    for arm, g, ref_g in (("step", g_k, g_e), (control, runs[control][1], g_e),
+                          (ref, g_e, runs[ref][1])):
+        r = readings(g, ref_g)
         for group in groups:
             for kind in r:
                 step[f"{arm}_{group}_{kind}_err_over_tol"] = worst(r[kind],
@@ -1354,15 +1449,19 @@ def check_step(opt, state_dict, batch, margin, held, hold=True):
         failed[arm] = [f"{group}_{kind}" for group, kind, limit in held
                        if worst(r[kind], group) > limit]
     step["step_grad_eager_rerun_default_cudnn_elementwise"] = spread
-    step["step_failed"], step["tf32_failed"] = failed["step"], failed["tf32"]
+    step["step_failed"] = failed["step"]
+    step[f"{control}_failed"] = failed[control]
     if not hold:
         return step
-    if step["step_loss_rel_diff"] > STEP_LOSS_RTOL or failed["step"]:
-        raise SystemExit(f"one training step through the kernels disagrees "
-                         f"with the eager one: {step}")
-    if len(failed["tf32"]) < len(held):
-        raise SystemExit(f"the one-step check does not tell a TF32 step from "
-                         f"the fp32 one: {step}")
+    if step["step_loss_rel_diff"] > spec["loss_rtol"] or failed["step"]:
+        raise SystemExit(f"one {step['step_compute_dtype']} training step "
+                         f"through the kernels disagrees with the eager "
+                         f"one: {step}")
+    need = len(held) if spec["control_fails"] == "every" else 1
+    if len(failed[control]) < need:
+        raise SystemExit(f"the {step['step_compute_dtype']} one-step check "
+                         f"does not tell its control ({control}) from the "
+                         f"step: {step}")
     return step
 
 
@@ -1374,7 +1473,8 @@ def seeded_state(opt):
 
 
 def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
-               nt_test, margin, held, seeded_check=False):
+               nt_test, margin, held, seeded_check=False,
+               precision="float32"):
     """The trainer CLI at cfg's width through the kernels, with exact
     launch counts; one step through the kernels and through the eager
     rollout and plain pools and upsamples (check_step, on the first
@@ -1382,33 +1482,40 @@ def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
     with `seeded_check`, on seeded_state (the final state's readings then
     printed, not held); then test_main serving the checkpoint it wrote on
     the test fold in `test_dir`. `margin` and `held` go to check_step.
-    Returns the summary."""
+    With `precision` "bfloat16" the trainer runs --precision bfloat16 (the
+    pools and upsamples through the kernels' bfloat16 versions) and the
+    check is check_step's in bfloat16, on seeded_state. Returns the
+    summary."""
     name = f"{cfg['dataset']}-{cfg['archi']}"
-    xp_dir, data_dir = WORK_DIR / f"train_{name}", WORK_DIR / f"data_{name}"
+    xp_dir = WORK_DIR / f"train_{name}_{precision}"
+    data_dir = WORK_DIR / f"data_{name}"
     data_dir.mkdir(parents=True, exist_ok=True)
     if cfg["dataset"] == "kth":
         write_kth_packed_tree(data_dir, cfg["nx"], SEED + 4)
     opt = train_args(str(xp_dir), str(data_dir), n_steps, cfg=cfg,
-                     batch_size=batch_size)
+                     batch_size=batch_size, precision=precision)
     # per step: the rollout's forward and backward and, on vgg, 4 pools
     # and 4 upsamples each way; the validation at the last step encodes
     # its conditioning frames once (4 pools) and decodes each chunk (4
-    # upsamples), with the eager rollout
+    # upsamples), with the eager rollout; all in the compute dtype's
+    # kernels
     vgg = 4 if cfg["archi"] == "vgg" else 0
     val_chunks = opt.n_iter_test * (opt.n_samples_test
                                     // opt.val_samples_chunk)
+    sfx = "_bf16" if precision == "bfloat16" else ""
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
     history = train_main.main(opt)
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    expect_launches(f"{name} training, {n_steps} steps", counts, dict(
-        train_rollout_fwd=n_steps, train_rollout_bwd=2 * n_steps,
-        maxpool_fwd=vgg * (n_steps + opt.n_iter_test),
-        maxpool_bwd=vgg * n_steps,
-        upsample_fwd=vgg * (n_steps + val_chunks),
-        upsample_bwd=vgg * n_steps))
+    expect_launches(f"{name} training, {n_steps} steps, {precision}", counts,
+                    {"train_rollout_fwd": n_steps,
+                     "train_rollout_bwd": 2 * n_steps,
+                     f"maxpool_fwd{sfx}": vgg * (n_steps + opt.n_iter_test),
+                     f"maxpool_bwd{sfx}": vgg * n_steps,
+                     f"upsample_fwd{sfx}": vgg * (n_steps + val_chunks),
+                     f"upsample_bwd{sfx}": vgg * n_steps})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in history]
     if len(losses) != n_steps or not np.all(np.isfinite(losses)):
@@ -1423,28 +1530,58 @@ def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
     if cfg["dataset"] == "kth":
         batch = batch[:, :check_videos]
     batch = to_device(batch, "cuda")
-    if seeded_check:
+    compute_dtype = DTYPES[precision]
+    if compute_dtype == torch.bfloat16:
+        state = seeded_state(opt)
+    elif seeded_check:
         trained = check_step(opt, state, batch, margin, held, hold=False)
         print("trained_state_step_check " + json.dumps(trained), flush=True)
         state = seeded_state(opt)
-    step = check_step(opt, state, batch, margin, held)
+    step = check_step(opt, state, batch, margin, held,
+                      compute_dtype=compute_dtype)
 
     arts, _, _ = run_cli(xp_dir, test_dir, "on", nt_test, n_samples=CHUNK)
     psnr = arts["results"]["psnr"]
     summary = dict(
-        config=name, steps=n_steps, batch=opt.batch_size, seq_len=opt.seq_len,
+        config=name, precision=precision, steps=n_steps,
+        batch=opt.batch_size, seq_len=opt.seq_len,
         oversampling=opt.n_euler_steps, launches=counts, losses=losses,
         wall_s=wall, ms_per_step=ms_step, frames_per_s=frames / (ms_step / 1e3),
         peak_memory_gb=peak_gb, **step, served_psnr_mean=float(psnr.mean()),
         served_videos=int(psnr.size))
     print("train_path " + json.dumps(summary), flush=True)
-    print(f"{name} training step at B={opt.batch_size}, seq_len "
-          f"{opt.seq_len}: {ms_step:.3f} ms per step after {warmup} warm-up "
+    print(f"{name} {precision} training step at B={opt.batch_size}, "
+          f"seq_len {opt.seq_len}: {ms_step:.3f} ms per step after {warmup} "
+          f"warm-up "
           f"steps, {summary['frames_per_s']:.1f} frames/s, peak "
           f"{peak_gb:.2f} GB", flush=True)
     if not np.all(np.isfinite(psnr)):
         raise SystemExit(f"test_main on the trained checkpoint: {psnr}")
     return summary
+
+
+def bench_path():
+    """srvp_tpu_torch.bench at reduced steps (BENCH_ARGS), its golden record
+    a copy of the committed one under WORK_DIR: its JSON line must hold
+    finite numbers and 0 < mfu <= 1 for both configurations. Returns the
+    line."""
+    golden = WORK_DIR / "bench_golden.json"
+    golden.write_text(Path(bench.GOLDEN_PATH).read_text()
+                      if Path(bench.GOLDEN_PATH).exists() else "{}")
+    t0 = time.perf_counter()
+    line = bench.main(BENCH_ARGS + ["--golden", str(golden)])
+    print(f"bench: {time.perf_counter() - t0:.1f} s", flush=True)
+    if set(line["configs"]) != set(bench.CONFIGS):
+        raise SystemExit(f"bench configs {sorted(line['configs'])}")
+    for name, info in line["configs"].items():
+        values = [info[k] for k in ("sec_per_step", "frames_per_sec", "loss",
+                                    "model_flops_per_step", "mfu",
+                                    "peak_memory_gb", "loss_step2_fp32")]
+        if not (np.all(np.isfinite(values)) and 0 < info["mfu"] <= 1):
+            raise SystemExit(f"bench {name}: {info}")
+    if not np.isfinite(line["rollout_frames_per_sec_per_chip"]):
+        raise SystemExit(f"bench generation: {line}")
+    return line
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -1509,8 +1646,10 @@ def main():
         KTH_TRAIN_BATCH, ko * (KTH_CONFIG["seq_len"] - 1), ko, SEED + 9,
         KTH_KINK_MARGIN)
     del model, kmodel
-    # kernels 4-7 at every vgg site of the KTH step
+    # kernels 4-7 at every vgg site of the KTH step, fp32 and bf16
     spatial = check_spatial(KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"], SEED + 10)
+    spatial_bf16 = check_spatial(KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"],
+                                 SEED + 13, torch.bfloat16)
     summary = eval_path(XP_CONFIG, N_VIDEOS, XP_CONFIG["seq_len_test"], SEED)
     train_summary = train_path(
         XP_CONFIG, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCH, TRAIN_BATCH,
@@ -1521,6 +1660,21 @@ def main():
         KTH_CONFIG, KTH_TRAIN_STEPS, KTH_TRAIN_WARMUP, KTH_TRAIN_BATCH,
         KTH_CHECK_VIDEOS, WORK_DIR / "data_kth-vgg", KTH_NT_GEN,
         KTH_KINK_MARGIN, KTH_STEP_HELD, seeded_check=True)
+    # the trainer in bfloat16 (--precision bfloat16) on both models, then
+    # the port's bench at reduced steps
+    torch.cuda.empty_cache()
+    train_bf16 = train_path(
+        XP_CONFIG, TRAIN_STEPS_BF16, TRAIN_WARMUP_BF16, TRAIN_BATCH,
+        TRAIN_BATCH, WORK_DIR / "data_smmnist-dcgan",
+        XP_CONFIG["seq_len_test"], parity.KINK_MARGIN, BF16_STEP_HELD,
+        precision="bfloat16")
+    torch.cuda.empty_cache()
+    kth_train_bf16 = train_path(
+        KTH_CONFIG, KTH_TRAIN_STEPS_BF16, KTH_TRAIN_WARMUP_BF16,
+        KTH_TRAIN_BATCH, KTH_CHECK_VIDEOS, WORK_DIR / "data_kth-vgg",
+        KTH_NT_GEN, KTH_KINK_MARGIN, BF16_STEP_HELD, precision="bfloat16")
+    torch.cuda.empty_cache()
+    bench_line = bench_path()
     # kernels 8-9 at every 3x3 conv site of the KTH step, then their path;
     # last, so that the model's paths run as they did before this phase
     torch.cuda.empty_cache()
@@ -1554,15 +1708,17 @@ def main():
                    train_row["plain_bwd_ms"], train_row["bwd_bound_ms"],
                    train_row["bwd_bound_by"]),
     ]
-    for name, line in (("maxpool_fwd", 101), ("maxpool_bwd", 105),
-                       ("upsample_fwd", 116), ("upsample_bwd", 120)):
-        row = spatial[name]
-        kernels.append(kernel_row(
-            name, "srvp_tpu_torch/csrc/spatial.cu",
-            f"srvp_tpu/ops/pallas/spatial.py:{line}",
-            kth_train["launches"][name], row["max_abs_err"], row["ms"],
-            row["plain_ms"], row["bound_ms"], row["bound_by"],
-            row["library_ms"]))
+    for rows, train, sfx in ((spatial, kth_train, ""),
+                             (spatial_bf16, kth_train_bf16, "_bf16")):
+        for name, line in (("maxpool_fwd", 101), ("maxpool_bwd", 105),
+                           ("upsample_fwd", 116), ("upsample_bwd", 120)):
+            row = rows[name]
+            kernels.append(kernel_row(
+                name + sfx, "srvp_tpu_torch/csrc/spatial.cu",
+                f"srvp_tpu/ops/pallas/spatial.py:{line}",
+                train["launches"][name + sfx], row["max_abs_err"], row["ms"],
+                row["plain_ms"], row["bound_ms"], row["bound_by"],
+                row["library_ms"]))
     for name, line, check, counted in (
             ("conv3x3_block_fwd", "srvp_tpu/ops/pallas/conv_stage.py:50",
              "block float32", "conv3x3_block"),
@@ -1621,6 +1777,19 @@ def main():
           f"batch of {BATCH} videos x {N_SAMPLES} samples; kth training: "
           f"{kth_train['ms_per_step']:.1f} ms per step, peak "
           f"{kth_train['peak_memory_gb']:.2f} GB", flush=True)
+    for what, fp32, bf16 in (("dcgan", train_summary, train_bf16),
+                             ("kth", kth_train, kth_train_bf16)):
+        print(f"{what} training, bf16 against fp32 (trainer CLI): "
+              f"{bf16['ms_per_step']:.1f} against {fp32['ms_per_step']:.1f} "
+              f"ms per step, peak {bf16['peak_memory_gb']:.2f} against "
+              f"{fp32['peak_memory_gb']:.2f} GB", flush=True)
+    for name, info in bench_line["configs"].items():
+        print(f"bench {name} ({bench_line['precision']}, "
+              f"{info['steps']} steps): {info['ms_per_step']:.2f} ms per "
+              f"step, {info['frames_per_sec']:.1f} frames/s, mfu "
+              f"{info['mfu']:.4f}, peak {info['peak_memory_gb']:.2f} GB; "
+              f"generation {bench_line['rollout_frames_per_sec_per_chip']:.1f}"
+              f" frames/s", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

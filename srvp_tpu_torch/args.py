@@ -3,7 +3,12 @@ JAX trainer with its name, type, default and `required`, `--config FILE`
 included, plus `--fused_rollout`. `--device` is the torch device here (the
 JAX package's `--device` is a list of ints that it ignores). Flags of parts
 that are not ported yet are accepted and rejected by `check_ported`, when
-set away from their defaults, with a pointer to ROADMAP.md."""
+set away from their defaults, with a pointer to ROADMAP.md. The mixed
+precision flags are the JAX trainer's: `--precision bfloat16`,
+`--torch_amp` and `--apex_amp` select bfloat16 compute (`compute_dtype`),
+and the apex options are accepted and ignored."""
+
+import torch
 
 from srvp_tpu_torch import configlib
 
@@ -34,21 +39,30 @@ def create_args():
                    help="Training rollout through its CUDA kernels "
                         "(auto/on) or the eager per-step loop (off).")
 
-    g = p.add_argument_group("Not ported yet (ROADMAP.md)")
-    g.add_argument("--precision", type=str, default="float32",
-                   choices=PRECISIONS, help="Only float32 is ported.")
-    amp = g.add_mutually_exclusive_group()
+    amp_p = p.add_argument_group(
+        "Mixed precision",
+        "bfloat16 compute of the conv encoder and decoder; the legacy "
+        "torch/apex flags select it. No loss scaling.")
+    amp_p.add_argument("--precision", type=str, default="float32",
+                       choices=PRECISIONS,
+                       help="Compute dtype for conv encoder/decoder "
+                            "(latents stay fp32).")
+    amp = amp_p.add_mutually_exclusive_group()
     amp.add_argument("--torch_amp", action="store_true",
-                     help="Not ported (bfloat16 compute).")
+                     help="Legacy alias: enables bfloat16 compute.")
     amp.add_argument("--apex_amp", action="store_true",
-                     help="Not ported (bfloat16 compute).")
-    g.add_argument("--amp_opt_lvl", type=str, metavar="OPT_LVL",
-                   default="O1", choices=["O0", "O1", "O2", "O3"],
-                   help="Not ported (apex AMP level).")
-    g.add_argument("--keep_batchnorm_fp32", action="store_true",
-                   default=None, help="Not ported (apex AMP).")
-    g.add_argument("--apex_verbose", action="store_true",
-                   help="Not ported (apex AMP).")
+                     help="Legacy alias: enables bfloat16 compute.")
+    amp_p.add_argument("--amp_opt_lvl", type=str, metavar="OPT_LVL",
+                       default="O1", choices=["O0", "O1", "O2", "O3"],
+                       help="Accepted for compatibility; ignored.")
+    amp_p.add_argument("--keep_batchnorm_fp32", action="store_true",
+                       default=None,
+                       help="Accepted for compatibility; BN statistics are "
+                            "always fp32.")
+    amp_p.add_argument("--apex_verbose", action="store_true",
+                       help="Accepted for compatibility; ignored.")
+
+    g = p.add_argument_group("Not ported yet (ROADMAP.md)")
     g.add_argument("--n_devices", type=int, metavar="NB", default=None,
                    help="Only 1 is ported: training runs on one card.")
     g.add_argument("--local_rank", type=int, metavar="RANK", default=0,
@@ -181,16 +195,10 @@ def create_args():
 def check_ported(opt):
     """Raises NotImplementedError for a flag whose part is not ported."""
     todo = {
-        "--precision bfloat16": opt.precision != "float32",
-        "--torch_amp": opt.torch_amp,
-        "--apex_amp": opt.apex_amp,
         "--resume": opt.resume,
         "--steps_per_dispatch > 1": opt.steps_per_dispatch != 1,
         "--no_device_compose": opt.no_device_compose,
         "--n_devices > 1": opt.n_devices not in (None, 1),
-        "--amp_opt_lvl": opt.amp_opt_lvl != "O1",
-        "--keep_batchnorm_fp32": opt.keep_batchnorm_fp32 is not None,
-        "--apex_verbose": opt.apex_verbose,
         "--local_rank": opt.local_rank != 0,
         "--n_dcn": opt.n_dcn != 1,
         "--coordinator_address": opt.coordinator_address is not None,
@@ -206,3 +214,10 @@ def check_ported(opt):
             raise NotImplementedError(
                 f"{flag} is not ported to the PyTorch trainer yet "
                 "(ROADMAP.md, Queue 1)")
+
+
+def compute_dtype(opt):
+    """The encoder's and decoder's dtype that the flags select
+    (srvp_tpu/train_main.py `train_hparams`)."""
+    bf16 = opt.precision == "bfloat16" or opt.torch_amp or opt.apex_amp
+    return torch.bfloat16 if bf16 else torch.float32

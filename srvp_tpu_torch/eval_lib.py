@@ -12,7 +12,10 @@ video-major (row b*S + s). The inference rollout over the conditioning
 frames uses the training Euler step count, the generation rollout the
 evaluation one; the generation rollout is the pure-prior kernel
 (kernels/rollout.py) unless `use_kernel_rollout` is False, in which case the
-eager `SRVP.generate` loop runs on the same noise.
+eager `SRVP.generate` loop runs on the same noise. Frames are encoded and
+decoded in `compute_dtype` (the frames' own dtype, float32, by default, as
+the evaluation CLI runs), the latent model in the frames' dtype; the
+predictions are clipped and scored in float32.
 """
 
 import time
@@ -73,7 +76,7 @@ def sample_rollout(model, hx, hx_z, n_samples, nt_gen, o_inf, o_gen, eps,
 
 @torch.no_grad()
 def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
-                  use_kernel_rollout=True):
+                  use_kernel_rollout=True, compute_dtype=None):
     """One chunk of S = n_samples samples for every video of the batch.
 
     x_cond: (nt_cond, B, H, W, C), x_target: (T_pred, B, H, W, C) in [0, 1];
@@ -81,19 +84,24 @@ def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
     x_rec_u8 (B, nt_cond, H, W, C), {psnr, ssim: (S, B)}).
     """
     bsz = x_cond.shape[1]
+    compute_dtype = compute_dtype or x_cond.dtype
     # deterministic conditioning work, computed once per chunk
-    hx, skips = model.encode(x_cond)
+    hx, skips = model.encode(x_cond.to(compute_dtype))
+    hx = hx.to(x_cond.dtype)
     w = model.infer_w(hx)
     hx_z = lstm_apply(model.inf_z, hx)
     y_inf, y_gen = sample_rollout(model, hx, hx_z, n_samples,
                                   x_target.shape[0] + 1, o_inf, o_gen, eps,
                                   use_kernel_rollout)
     # conditioning reconstruction of sample 0 only: rows b*S + 0
-    x_rec = model.decode(w, y_inf[:, ::n_samples], skips)
+    w_c = w.to(compute_dtype)
+    x_rec = model.decode(w_c, y_inf[:, ::n_samples].to(compute_dtype),
+                         skips).float()
     skips_f = (None if skips is None
                else [fold(s, n_samples, 0) for s in skips])
-    x_pred = model.decode(fold(w, n_samples, 0), y_gen[1:],
-                          skips_f).clamp(0.0, 1.0)
+    x_pred = model.decode(fold(w_c, n_samples, 0),
+                          y_gen[1:].to(compute_dtype),
+                          skips_f).float().clamp(0.0, 1.0)
 
     t_pred = x_pred.shape[0]
     x_target_f = fold(x_target, n_samples, 1)
@@ -153,11 +161,12 @@ def select_update(carry, x_pred_u8, x_rec_u8, metrics, chunk_start):
 
 
 def select_chunk(carry, model, x_cond, x_target, n_samples, chunk_start,
-                 o_inf, o_gen, eps, use_kernel_rollout=True):
+                 o_inf, o_gen, eps, use_kernel_rollout=True,
+                 compute_dtype=None):
     """compute_chunk followed by select_update."""
     x_pred_u8, x_rec_u8, metrics = compute_chunk(
         model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
-        use_kernel_rollout=use_kernel_rollout)
+        use_kernel_rollout=use_kernel_rollout, compute_dtype=compute_dtype)
     return select_update(carry, x_pred_u8, x_rec_u8, metrics, chunk_start)
 
 
@@ -168,7 +177,8 @@ def _host_u8(x):
 
 
 def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
-             o_inf, o_gen, pad_to=None, use_kernel_rollout=True):
+             o_inf, o_gen, pad_to=None, use_kernel_rollout=True,
+             compute_dtype=None):
     """Evaluation loop over host batches (T, B, H, W, C) float32 on one
     device (the model's). Ragged batches are edge-padded to `pad_to` videos
     and the padding is dropped on the host.
@@ -216,7 +226,8 @@ def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
                               generator, device)
             carry = select_chunk(carry, model, x_cond, x_target, chunk,
                                  c * chunk, o_inf, o_gen, eps,
-                                 use_kernel_rollout=use_kernel_rollout)
+                                 use_kernel_rollout=use_kernel_rollout,
+                                 compute_dtype=compute_dtype)
         carry = {k: v[:, :real_bsz] if k == "random" else v[:real_bsz]
                  for k, v in carry.items()}
         carry = {k: v.cpu().numpy() for k, v in carry.items()}

@@ -123,9 +123,10 @@ def load_library():
                              ("srvp_maxpool2x2_bwd", 4),
                              ("srvp_upsample2x_fwd", 2),
                              ("srvp_upsample2x_bwd", 2)):
-            fn = getattr(lib, name)
-            fn.argtypes = [p] * n_ptrs + [ll, ll, p]
-            fn.restype = i
+            for suffix in ("", "_bf16"):
+                fn = getattr(lib, name + suffix)
+                fn.argtypes = [p] * n_ptrs + [ll, ll, p]
+                fn.restype = i
         # (pointers, bf16, n, cin, h, w, cout, then n_valid and act, or bh,
         # then the tile: rows, frames (kernel 8 only), cols; n_tiles)
         lib.srvp_conv3x3_block_fwd.argtypes = [p] * 7 + [i, ll, i, i, i, i,

@@ -1,7 +1,8 @@
 """Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
 rates, at the full 700 W power limit), the roofline bound computed from
 them, and the card's name and power limit as nvidia-smi reads them: what
-chip_smoke.py and bench_conv_stage.py state their times against."""
+chip_smoke.py, bench_conv_stage.py and bench.py (its MFU) state their
+times against."""
 
 import subprocess
 

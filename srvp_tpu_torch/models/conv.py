@@ -11,8 +11,9 @@ of ops: ('block', ConvBlockSpec), ('maxpool', None) or ('upsample', None).
     convT stem and 3x3 convs, each stage but the last ending in a 2x
     nearest upsample; both end in a plain convT.
 The encoder returns its per-stage outputs, deepest first, as skip
-connections; with skip connections the decoder concatenates skip i to the
-input of stage i.
+connections; with skip connections stage i of the decoder convolves the
+concatenation of its input and skip i, each video's skip shared by its
+frames.
 
 Module nesting gives the reference checkpoint's keys: a dcgan stage is its
 one block (`encoder.conv.{i}.0.weight`), a vgg stage an nn.Sequential of its
@@ -22,9 +23,17 @@ ops with the pool and upsample at their reference positions
 upsamples are kernels/spatial.py's modules: the CUDA kernels unless
 `kernels.spatial.use_kernels(model, False)` turns them to the plain versions.
 
-The JAX package rewrites the 1x1 decoder stem as a GEMM and splits the skip
-conv for the TPU; here the stem is an ordinary ConvTranspose2d and the skip
-is concatenated, which computes the same function.
+The networks compute in their input's dtype (models/layers.py): float32,
+or bfloat16 under the trainer's `--precision bfloat16`, the pools and
+upsamples then through the kernels' bfloat16 versions.
+
+The JAX package rewrites the 1x1 decoder stem as a GEMM; here the stem is
+an ordinary ConvTranspose2d, which computes the same function. The skip
+conv is split as in the JAX package (models/layers.py `skip_forward`): the
+conv of the stage's input by the first channels of the weight plus the conv
+of the skip by the rest, once per video and added to each of its frames.
+It is the same function with the skip half of the work divided by the
+frame count, and in bfloat16 it rounds where the JAX package rounds.
 """
 
 import torch
@@ -140,12 +149,26 @@ class Decoder(nn.Module):
         self.first_upconv = stage_module(first)
         self.conv = nn.ModuleList([stage_module(ops) for ops in stages])
 
-    def forward(self, z, skips=None):
-        """z: (N, n_in) -> frames (N, C, H, W) in [0, 1]. skips: None or a
-        list (deepest first) of (N, c, h, w) tensors."""
+    def forward(self, z, skips=None, nt=1):
+        """z: (N, n_in) -> frames (N, C, H, W) in [0, 1], in z's dtype.
+        skips: None or a list (deepest first) of per-video (N / nt, c, h, w)
+        tensors, cast to that dtype, each shared by the nt frames of its
+        video (rows b * nt + t of z)."""
         h = self.first_upconv(z.reshape(z.shape[0], z.shape[1], 1, 1))
         for i, stage in enumerate(self.conv):
-            if skips is not None:
-                h = torch.cat([h, skips[i]], dim=1)
-            h = stage(h)
+            if skips is None:
+                h = stage(h)
+                continue
+            conv, rest = _first_conv(stage)
+            h = conv.skip_forward(h, skips[i].to(h.dtype), nt)
+            for m in rest:
+                h = m(h)
         return torch.sigmoid(h)
+
+
+def _first_conv(stage):
+    """(the stage's first conv layer, the modules after it in order)."""
+    mods = list(stage) if isinstance(stage, nn.Sequential) else [stage]
+    if isinstance(mods[0], nn.Sequential):
+        mods = list(mods[0]) + mods[1:]
+    return mods[0], mods[1:]

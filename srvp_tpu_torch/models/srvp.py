@@ -15,6 +15,12 @@ index, the infer_w frame indices) so tests can feed it the JAX draws; when
 one is None it is drawn from the given torch.Generator, in a fixed order
 that does not depend on the rollout route.
 
+Precision follows the JAX package's `compute_dtype`: `forward` casts the
+frames to it before the encoder, the encodings back to float32 after it,
+and w and y to it before the decoder; the inference networks, the z-LSTM,
+the rollouts and the parameters stay float32 (`encode` and `decode` compute
+in their inputs' dtype).
+
 State-space recap: content w (permutation-invariant over frames), initial
 state y_1 ~ q(y | x_{1:nt_inf}), dynamics y' = y + dt * f(y, z), with
 z ~ q(z | LSTM(hx)_t) while observed and z ~ p(z | y) after.
@@ -100,7 +106,8 @@ class SRVP(nn.Module):
     # -- encode / decode ----------------------------------------------------
 
     def encode(self, x, skip_t=None, generator=None):
-        """x: (T, B, H, W, C) -> (hx (T, B, nhx), skips or None).
+        """x: (T, B, H, W, C) -> (hx (T, B, nhx), skips or None), in x's
+        dtype.
 
         Skips are per video, (B, c, h, w) NCHW: from frame skip_t[b] in
         training mode (drawn uniformly when None) and from the last frame
@@ -120,15 +127,15 @@ class SRVP(nn.Module):
         return hx, [s[rows] for s in skips]
 
     def decode(self, w, y, skips):
-        """Decodes (w, y_t) pairs. w: (B, nh_inf), y: (L, B, ny), skips:
-        None or per-video (B, c, h, w) tensors, shared by the L frames.
-        Returns (L, B, H, W, C) in [0, 1]."""
+        """Decodes (w, y_t) pairs in w's dtype (y and the skips are cast to
+        it). w: (B, nh_inf), y: (L, B, ny), skips: None or per-video
+        (B, c, h, w) tensors, shared by the L frames. Returns (L, B, H, W, C)
+        in [0, 1]."""
         nt, bsz = y.shape[0], y.shape[1]
         y_flat = y.transpose(0, 1).reshape(bsz * nt, self.cfg.ny)
         w_flat = w[:, None].expand(bsz, nt, w.shape[-1]).reshape(bsz * nt, -1)
-        if skips is not None:
-            skips = [s.repeat_interleave(nt, dim=0) for s in skips]
-        x_flat = self.decoder(torch.cat([w_flat, y_flat], dim=-1), skips)
+        x_flat = self.decoder(torch.cat([w_flat, y_flat.to(w_flat.dtype)],
+                                        dim=-1), skips, nt)
         x_flat = x_flat.permute(0, 2, 3, 1)
         return x_flat.reshape((bsz, nt) + x_flat.shape[1:]).transpose(0, 1)
 
@@ -163,23 +170,27 @@ class SRVP(nn.Module):
 
     def forward(self, x, nt, oversampling=1, skip_t=None, frame_idx=None,
                 eps_y=None, eps_pri=None, eps_pos=None, generator=None,
-                use_kernel=False):
+                use_kernel=False, compute_dtype=None):
         """Full model pass (srvp_tpu/models/srvp.py `forward`).
 
-        x: (T, B, H, W, C) in [0, 1]. Returns ForwardOutput with nt frames.
+        x: (T, B, H, W, C) in [0, 1]. Returns ForwardOutput with nt frames,
+        x_ in `compute_dtype` (the encoder's and decoder's dtype, x's when
+        None); the latent model runs in x's dtype (float32 in training).
         Randomness not given is drawn in the order skip_t, frame_idx, eps_y,
         rollout eps.
         `use_kernel` routes an all-posterior rollout through the training
         rollout kernels.
         """
-        hx, skips = self.encode(x, skip_t, generator)
+        compute_dtype = compute_dtype or x.dtype
+        hx, skips = self.encode(x.to(compute_dtype), skip_t, generator)
+        hx = hx.to(x.dtype)
         w = self.infer_w(hx, frame_idx, generator)
         y_0, q_y_0_params = self.infer_y(hx[:self.cfg.nt_inf], eps_y,
                                          generator)
         gen = self.generate(y_0, hx, nt, oversampling, eps_pri=eps_pri,
                             eps_pos=eps_pos, generator=generator,
                             use_kernel=use_kernel)
-        x_ = self.decode(w, gen.y, skips)
+        x_ = self.decode(w.to(compute_dtype), gen.y.to(compute_dtype), skips)
         return ForwardOutput(x_, gen.y, gen.z, w, q_y_0_params,
                              gen.q_z_params, gen.p_z_params, gen.res)
 

@@ -22,14 +22,17 @@ class LossAux(NamedTuple):
 
 
 def elbo_loss(model, x, *, oversampling, obs_scale, beta_y, beta_z, l2_res,
-              use_kernel=False, **noise):
+              use_kernel=False, compute_dtype=None, **noise):
     """Returns (loss, LossAux). x: (T, B, H, W, C) float in [0, 1], uint8, or
-    a Moving MNIST parts dict (composited on the device). `noise` goes to
+    a Moving MNIST parts dict (composited on the device). `compute_dtype`
+    is the encoder's and decoder's (SRVP.forward; x's when None); the
+    terms are summed in float32 at least (ops/dists.py). `noise` goes to
     SRVP.forward (skip_t, frame_idx, eps_y, eps_pos, generator); the model
     should be in training mode."""
     x = materialize(x, model.cfg.nx)
     nt, bsz = x.shape[0], x.shape[1]
-    out = model(x, nt, oversampling, use_kernel=use_kernel, **noise)
+    out = model(x, nt, oversampling, use_kernel=use_kernel,
+                compute_dtype=compute_dtype, **noise)
     nll = dists.neg_logprob(out.x_, x, scale=obs_scale).sum()
     kl_y_0 = dists.kl_raw_vs_std_normal(out.q_y_0_params).sum()
     kl_z = dists.kl_raw_vs_raw(out.q_z_params, out.p_z_params).sum()

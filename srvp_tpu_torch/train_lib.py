@@ -4,6 +4,10 @@ the optimisation step, and best-of-N validation.
 Adam at torch's defaults (b1 0.9, b2 0.999, eps 1e-8), the learning rate
 constant until `lr_burnin` steps and then decayed linearly to 0 over
 `lr_decay_iter` steps, as a LambdaLR stepped once per optimisation step.
+`compute_dtype` is the encoder's and decoder's dtype in the step and in the
+validation (bfloat16 under `--precision bfloat16`); the parameters, Adam's
+state, the latent model and the loss stay float32, and no loss is scaled,
+as in the JAX package.
 """
 
 import dataclasses
@@ -34,6 +38,7 @@ class TrainHParams:
     nt_cond: int = 5
     n_samples_test: int = 100
     val_samples_chunk: int = 25
+    compute_dtype: torch.dtype = torch.float32
     use_kernel: bool = True  # training rollout through its CUDA kernels
 
 
@@ -77,7 +82,8 @@ def loss_and_grads(model, x, hp, **noise):
     loss, aux = elbo_loss(model, x, oversampling=hp.oversampling,
                           obs_scale=hp.obs_scale, beta_y=hp.beta_y,
                           beta_z=hp.beta_z, l2_res=hp.l2_res,
-                          use_kernel=hp.use_kernel, **noise)
+                          use_kernel=hp.use_kernel,
+                          compute_dtype=hp.compute_dtype, **noise)
     loss.backward()
     return loss, aux
 
@@ -104,7 +110,8 @@ def make_eval_batch(cfg, hp, nt, n_samples=None):
     the evaluation's (eval_lib.sample_rollout: posterior over the nt_cond
     conditioning frames, then the eager prior loop) on `eps`, a list of one
     eval_lib.chunk_noise(...) tuple per chunk, or on draws from
-    `generator` in that order."""
+    `generator` in that order. Frames are encoded and decoded in
+    hp.compute_dtype, the latent model in the frames' dtype (float32)."""
     n_samples = n_samples or hp.n_samples_test
     chunk = min(hp.val_samples_chunk, n_samples)
     if n_samples % chunk:
@@ -116,8 +123,10 @@ def make_eval_batch(cfg, hp, nt, n_samples=None):
         model.eval()
         x = materialize(x, cfg.nx)
         bsz = x.shape[1]
-        hx, skips = model.encode(x[:hp.nt_cond])
-        w_f = eval_lib.fold(model.infer_w(hx), chunk, 0)
+        dtype = hp.compute_dtype
+        hx, skips = model.encode(x[:hp.nt_cond].to(dtype))
+        hx = hx.to(x.dtype)
+        w_f = eval_lib.fold(model.infer_w(hx), chunk, 0).to(dtype)
         skips_f = (None if skips is None
                    else [eval_lib.fold(s, chunk, 0) for s in skips])
         hx_z = lstm_apply(model.inf_z, hx)
@@ -129,7 +138,8 @@ def make_eval_batch(cfg, hp, nt, n_samples=None):
             y_inf, y_gen = eval_lib.sample_rollout(
                 model, hx, hx_z, chunk, nt - hp.nt_cond + 1, o, o, e,
                 use_kernel_rollout=False)
-            x_ = model.decode(w_f, torch.cat([y_inf, y_gen[1:]]), skips_f)
+            x_ = model.decode(w_f, torch.cat([y_inf, y_gen[1:]]).to(dtype),
+                              skips_f)
             psnr = psnr_from_mse(frame_mse(x_, x_f))    # (nt, B*S, C)
             all_p.append(psnr.mean(dim=(0, 2)).reshape(bsz, chunk))
             pred_p.append(psnr[hp.nt_cond:].mean(dim=(0, 2))

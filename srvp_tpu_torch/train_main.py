@@ -15,10 +15,12 @@ Logs loss, nll, kl_y_0, kl_z, lr and frames/s every `--log_interval` steps
 PSNR every `--val_interval` steps (saving XP/model_best.pt on improvement),
 saves XP/model_<step>.pt every `--chkpt_interval` steps (keeping the
 `--keep_chkpt` newest) and XP/model.pt at the end, beside XP/config.json;
-`--config FILE` (configs/*.yaml) sets the flags' defaults. The `.pt` files are state_dicts in the
-reference key names: `test_main --model_name model.pt` evaluates them.
-Not ported yet (ROADMAP.md): resume, bf16, dispatch windows, several GPUs,
-Human3.6M and BAIR, KTH's PNG tree.
+`--config FILE` (configs/*.yaml) sets the flags' defaults;
+`--precision bfloat16` (or `--torch_amp`, `--apex_amp`) runs the encoder
+and decoder in bfloat16, the latent model and the loss in float32. The `.pt`
+files are float32 state_dicts in the reference key names: `test_main
+--model_name model.pt` evaluates them. Not ported yet (ROADMAP.md): resume,
+dispatch windows, several GPUs, Human3.6M and BAIR, KTH's PNG tree.
 """
 
 import json
@@ -29,7 +31,7 @@ import time
 import torch
 
 from srvp_tpu_torch import train_lib
-from srvp_tpu_torch.args import check_ported, create_args
+from srvp_tpu_torch.args import check_ported, compute_dtype, create_args
 from srvp_tpu_torch.config import model_config, resolve_device, strict_fp32
 from srvp_tpu_torch.data.base import collate_uint8, load_dataset
 from srvp_tpu_torch.data.device_compose import parts_collate, to_device
@@ -45,6 +47,7 @@ def train_hparams(opt):
         lr_decay_iter=opt.lr_scheduling_n_iter, nt_cond=opt.nt_cond,
         n_samples_test=opt.n_samples_test,
         val_samples_chunk=opt.val_samples_chunk,
+        compute_dtype=compute_dtype(opt),
         use_kernel=opt.fused_rollout != "off")
 
 
@@ -74,7 +77,8 @@ def main(opt):
     if opt.seed is None:
         opt.seed = random.randint(1, 10000)
     strict_fp32()
-    print(f"Learning on {device} (seed: {opt.seed})", flush=True)
+    print(f"Learning on {device} (seed: {opt.seed}, compute dtype "
+          f"{str(compute_dtype(opt)).split('.')[-1]})", flush=True)
 
     print("Loading data...", flush=True)
     train_loader, val_loader = loaders(opt)

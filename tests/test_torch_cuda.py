@@ -332,17 +332,24 @@ def test_wgrad_unschedulable_plan_raises(cuda):
 
 
 def _bits_equal(a, b):
-    same = (a.view(torch.int32) == b.view(torch.int32)) \
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    same = (a.view(view) == b.view(view)) \
         | (torch.isnan(a) & torch.isnan(b))
-    return a.shape == b.shape and bool(same.all())
+    return bool(same.all())
 
 
-def _tied(shape, gen, device):
-    """fp32 NCHW on the card with three integer levels (most 2x2 windows
-    tie) and a planted NaN."""
-    x = torch.randint(0, 3, shape, generator=gen, device=device).float()
+def _tied(shape, gen, device, dtype=torch.float32):
+    """NCHW on the card with three integer levels (most 2x2 windows tie)
+    and a planted NaN."""
+    x = torch.randint(0, 3, shape, generator=gen, device=device).to(dtype)
     x[0, 0, 0, 1] = float("nan")
     return x
+
+
+def _spatial_counts(dtype=torch.float32):
+    return tuple(ksp.launches[k, dtype] for k in ksp.KERNELS)
 
 
 @pytest.mark.parametrize("shape", [
@@ -353,8 +360,7 @@ def _tied(shape, gen, device):
 def test_spatial_kernels_match_plain(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = _tied(shape, gen, cuda)
-    before = (ksp.pool_fwd_launches, ksp.pool_bwd_launches,
-              ksp.up_fwd_launches, ksp.up_bwd_launches)
+    before = _spatial_counts()
     m = ksp.max_pool2x2(x)
     g = torch.randn(m.shape, generator=gen, device=cuda)
     gx = ksp.max_pool2x2_bwd(x, m, g)
@@ -362,14 +368,59 @@ def test_spatial_kernels_match_plain(cuda, shape):
     gy = torch.randn(y.shape, generator=gen, device=cuda)
     gu = ksp.upsample2x_bwd(gy)
     torch.cuda.synchronize()
-    assert (ksp.pool_fwd_launches, ksp.pool_bwd_launches,
-            ksp.up_fwd_launches, ksp.up_bwd_launches) == tuple(
-                b + 1 for b in before)
+    assert _spatial_counts() == tuple(b + 1 for b in before)
     assert torch.isnan(m).any() and torch.isnan(gx).any()
     assert _bits_equal(m, ksp.max_pool2x2_reference(x))
     assert _bits_equal(gx, ksp.max_pool2x2_bwd_reference(x, m, g))
     assert _bits_equal(y, ksp.upsample2x_reference(x))
     assert _bits_equal(gu, ksp.upsample2x_bwd_reference(gy))
+
+
+@pytest.mark.parametrize("shape", [
+    (2000, 64, 64, 64),   # the KTH step's first pool
+    (2000, 512, 8, 8),    # its last
+    (37, 5, 6, 10),       # odd counts, W not a multiple of 4
+    (1, 1, 2, 2),
+])
+def test_spatial_bf16_kernels_match_plain(cuda, shape):
+    """Kernels 4-7 in bfloat16 (the trainer's --precision bfloat16): the
+    bfloat16 entry points launch, never the float32 ones, and each output
+    is bit-equal to the bfloat16 plain version (float32 inside, one
+    rounding), ties and a NaN included."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _tied(shape, gen, cuda, torch.bfloat16)
+    x[-1] += torch.randn(x[-1].shape, generator=gen, device=cuda).to(x.dtype)
+    before, before32 = _spatial_counts(torch.bfloat16), _spatial_counts()
+    m = ksp.max_pool2x2(x)
+    g = torch.randn(m.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    gx = ksp.max_pool2x2_bwd(x, m, g)
+    y = ksp.upsample2x(x)
+    gy = torch.randn(y.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    gu = ksp.upsample2x_bwd(gy)
+    torch.cuda.synchronize()
+    assert _spatial_counts(torch.bfloat16) == tuple(b + 1 for b in before)
+    assert _spatial_counts() == before32
+    assert m.dtype == gx.dtype == y.dtype == gu.dtype == torch.bfloat16
+    assert torch.isnan(m).any() and torch.isnan(gx).any()
+    assert _bits_equal(m, ksp.max_pool2x2_reference(x))
+    assert _bits_equal(gx, ksp.max_pool2x2_bwd_reference(x, m, g))
+    assert _bits_equal(y, ksp.upsample2x_reference(x))
+    assert _bits_equal(gu, ksp.upsample2x_bwd_reference(gy))
+
+
+def test_spatial_bf16_autograd_through_kernels(cuda):
+    """A bfloat16 vgg stage's pool and upsample under autograd go through
+    the bfloat16 kernels, forward and backward, with bfloat16 gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(8, 6, 16, 20, generator=gen, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    before = _spatial_counts(torch.bfloat16)
+    y = ksp.upsample2x(ksp.max_pool2x2(x))
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert _spatial_counts(torch.bfloat16) == tuple(b + 1 for b in before)
+    assert x.grad.dtype == torch.bfloat16 and torch.isfinite(
+        x.grad.float()).all()
 
 
 def test_spatial_autograd_matches_plain(cuda):
@@ -415,12 +466,12 @@ def test_spatial_pool_past_2_31_elements(cuda):
 
 def test_spatial_kernels_reject_bad_inputs(cuda):
     ok = torch.zeros(2, 3, 4, 4, device=cuda)
-    for bad in (ok[:, :, :3], ok[:, :, :, :3], ok.to(torch.bfloat16),
-                ok.double(), ok[0]):
+    for bad in (ok[:, :, :3], ok[:, :, :, :3], ok.half(), ok.double(),
+                ok[0]):
         with pytest.raises(ValueError):
             ksp.max_pool2x2(bad)
     with pytest.raises(ValueError):
-        ksp.upsample2x(ok.to(torch.bfloat16))
+        ksp.upsample2x(ok.half())
     with pytest.raises(ValueError):
         ksp.max_pool2x2_bwd(ok, torch.zeros(2, 3, 2, 2, device=cuda),
                             torch.zeros(2, 3, 2, 2))
@@ -567,7 +618,7 @@ def test_conv_stage_kernels_reject_bad_inputs(cuda):
         kcs.fused_conv_bn(x, w, 3)
 
 
-UP_BWD_SUM = "gx[o] = (a.x + b.x) + (a.y + b.y);"
+UP_BWD_SUM = "gx[o] = narrow<T>((a.x + b.x) + (a.y + b.y));"
 
 
 def test_kth_step_check_fails_on_a_planted_fault(cuda, tmp_path, monkeypatch):
@@ -596,8 +647,8 @@ def test_kth_step_check_fails_on_a_planted_fault(cuda, tmp_path, monkeypatch):
     src = csrc / "spatial.cu"
     text = src.read_text()
     assert text.count(UP_BWD_SUM) == 1
-    src.write_text(text.replace(UP_BWD_SUM, "gx[o] = ((a.x + b.x) + (a.y + "
-                                            "b.y)) * 1.001f;"))
+    src.write_text(text.replace(UP_BWD_SUM, "gx[o] = narrow<T>(((a.x + b.x) "
+                                            "+ (a.y + b.y)) * 1.001f);"))
     monkeypatch.setattr(kbuild, "CSRC_DIR", csrc)
     monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kbuild, "LIB_PATH", tmp_path / "build" / "lib.so")

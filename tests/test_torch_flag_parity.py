@@ -1,13 +1,19 @@
 """The port's trainer takes every flag of the JAX trainer (srvp_tpu/args.py)
 with the same type, default, `required` and choices, reads `--config FILE`
 as the JAX parser does, prunes periodic snapshots to `--keep_chkpt`, and
-rejects the flags of parts it has not ported when they are set."""
+selects bfloat16 compute from the mixed-precision flags as the JAX trainer
+does, and rejects the flags of parts it has not ported when they are
+set."""
 
 import os
 
 import pytest
 
+import torch
+
 from srvp_tpu import args as jax_args
+from srvp_tpu import train_main as jax_train_main
+from srvp_tpu.helper import DotDict
 from srvp_tpu_torch import args as port_args
 from srvp_tpu_torch import train_main
 
@@ -84,8 +90,27 @@ def test_keep_chkpt_must_not_be_negative(tmp_path):
         parse(tmp_path, "--keep_chkpt", "-1")
 
 
+@pytest.mark.parametrize("flags,precision", [
+    ([], "float32"), (["--precision", "bfloat16"], "bfloat16"),
+    (["--torch_amp"], "bfloat16"), (["--apex_amp"], "bfloat16"),
+    (["--amp_opt_lvl", "O3"], "float32"),
+    (["--keep_batchnorm_fp32"], "float32"), (["--apex_verbose"], "float32")])
+def test_mixed_precision_flags_select_the_jax_compute_dtype(tmp_path, flags,
+                                                           precision):
+    """The port maps the mixed-precision flags to the compute dtype that
+    the JAX trainer's train_hparams gives them (it reads train.py's
+    DotDict), and check_ported accepts them."""
+    argv = ["--config", KTH_YAML, "--data_dir", str(tmp_path / "d"),
+            "--save_path", str(tmp_path / "xp"), *flags]
+    jax_opt = DotDict(vars(jax_args.create_args().parse_args(argv)))
+    want = jax_train_main.train_hparams(jax_opt).compute_dtype
+    assert want.__name__ == precision
+    opt = port_args.create_args().parse_args(argv)
+    port_args.check_ported(opt)
+    assert port_args.compute_dtype(opt) == getattr(torch, precision)
+
+
 @pytest.mark.parametrize("flags", [
-    ["--amp_opt_lvl", "O2"], ["--keep_batchnorm_fp32"], ["--apex_verbose"],
     ["--local_rank", "1"], ["--n_dcn", "2"],
     ["--coordinator_address", "auto"], ["--num_processes", "2"],
     ["--process_id", "1"], ["--n_workers", "8"], ["--profile_dir", "p"],

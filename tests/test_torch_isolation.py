@@ -24,6 +24,7 @@ SCRIPT = textwrap.dedent("""
     import srvp_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         srvp_tpu_torch.__path__, "srvp_tpu_torch.")]
+    assert "srvp_tpu_torch.bench" in names
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401  (its helpers; main() is not run)

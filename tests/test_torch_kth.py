@@ -251,6 +251,30 @@ def test_eval_chunk_matches_jax():
                                np.asarray(metrics["ssim"]), atol=SSIM_ATOL)
 
 
+def test_cli_trains_kth_vgg_in_bfloat16(tree, tmp_path):
+    """train_main --precision bfloat16 on the packed tree (o = 2, skip
+    connections, the pools and upsamples in bfloat16): finite losses and
+    float32 checkpoints, on the CPU at tiny widths."""
+    xp = tmp_path / "xp"
+    opt = create_args().parse_args([
+        "--dataset", "kth", "--archi", "vgg", "--skipco", "--device", "cpu",
+        "--precision", "bfloat16",
+        "--data_dir", str(tree), "--save_path", str(xp), "--nc", "1",
+        "--ny", "4", "--nz", "4", "--nf", "4", "--nhx", "8", "--nh_inf", "8",
+        "--nlayers_inf", "2", "--nh_res", "16", "--nlayers_res", "2",
+        "--nt_inf", "3", "--n_euler_steps", "2", "--obs_scale", "0.2",
+        "--res_gain", "1.2", "--batch_size", "3", "--seq_len", "6",
+        "--seq_len_test", "8", "--nt_cond", "4", "--n_iter", "2",
+        "--log_interval", "1", "--val_interval", "2", "--n_iter_test", "1",
+        "--n_samples_test", "2", "--val_samples_chunk", "2",
+        "--batch_size_test", "2", "--seed", "3"])
+    history = train_main.main(opt)
+    assert [h["itr"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    sd = torch.load(xp / "model.pt")
+    assert all(v.dtype in (torch.float32, torch.int64) for v in sd.values())
+
+
 def test_cli_trains_and_serves_kth_vgg(tree, tmp_path):
     """train_main on the packed tree, then test_main on its model.pt and
     the svg_test_set_8 fold, on the CPU at tiny widths."""

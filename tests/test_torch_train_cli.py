@@ -1,6 +1,7 @@
 """The port's trainer CLI on the CPU at tiny widths: it trains, logs finite
 losses, validates, writes a model.pt that the port's test_main evaluates,
-refuses CUDA where there is none, and rejects the flags of parts that are
+refuses CUDA where there is none, trains in bfloat16 under the JAX
+trainer's mixed-precision flags, and rejects the flags of parts that are
 not ported yet."""
 
 import json
@@ -80,8 +81,35 @@ def test_cuda_is_not_replaced_by_the_cpu(tmp_path):
         train_main.main(parse(tmp_path, "--n_iter", "1"))
 
 
+@pytest.mark.parametrize("flags,dtype", [
+    (["--precision", "bfloat16"], torch.bfloat16),
+    (["--torch_amp"], torch.bfloat16),
+    (["--apex_amp"], torch.bfloat16),
+    (["--apex_amp", "--amp_opt_lvl", "O2", "--keep_batchnorm_fp32"],
+     torch.bfloat16),
+    (["--amp_opt_lvl", "O2"], torch.float32),
+    (["--keep_batchnorm_fp32"], torch.float32),
+    (["--apex_verbose"], torch.float32),
+    (["--precision", "float32"], torch.float32)])
+def test_mixed_precision_flags_train(tmp_path, flags, dtype, capsys):
+    """--precision bfloat16, --torch_amp and --apex_amp train in bfloat16
+    (srvp_tpu/train_main.py `train_hparams`); the apex options are accepted
+    and ignored. Two steps, finite losses, float32 checkpoints."""
+    opt = parse(tmp_path, "--device", "cpu", "--n_iter", "2",
+                "--val_interval", "2", *flags)
+    assert train_main.train_hparams(opt).compute_dtype == dtype
+    history = train_main.main(opt)
+    assert [h["itr"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    name = str(dtype).split(".")[-1]
+    assert f"compute dtype {name}" in capsys.readouterr().out
+    for ckpt in ("model.pt", "model_best.pt"):
+        sd = torch.load(tmp_path / "xp" / ckpt)
+        assert all(v.dtype in (torch.float32, torch.int64)
+                   for v in sd.values()), ckpt
+
+
 @pytest.mark.parametrize("flags", [
-    ["--precision", "bfloat16"], ["--torch_amp"], ["--apex_amp"],
     ["--resume"], ["--steps_per_dispatch", "2"], ["--n_devices", "2"],
     ["--dataset", "human"], ["--dataset", "bair"], ["--no_device_compose"]])
 def test_flags_of_unported_parts_raise(tmp_path, flags):
