@@ -120,6 +120,21 @@ Phases, each of which fails the script:
      variance and with a two-pass one, the sums at rtol 1e-4 / atol 1e-2
      with the two-pass one, a float64 eager stage as arbiter
      (check_conv_chain); exact launch counts.
+ 14. main path, resume on the card: the trainer CLI (RESUME_ARMS) as a
+     child process with --n_workers 4, --chkpt_interval 4 and
+     --log_interval 1, cuDNN's deterministic algorithms and no autotuning:
+     for dcgan at full width in fp32, 12 steps uninterrupted, then the
+     same flags with SIGTERM sent once the child logs step 4 (it must exit
+     with 143, its train_state.json at the step it stopped), then --resume
+     to step 12 (it must say the step it resumed from, its model.pt must
+     be bit-equal to the uninterrupted run's, and so must every logged
+     loss, metrics.jsonl holding each step once); the same for KTH vgg in
+     bf16 over 6 steps, SIGTERM after step 2. Every child launches the
+     kernels exactly as its steps and validations need, and at dcgan the
+     native Moving MNIST generator serves every training batch (its batch
+     counts printed). Then the dcgan trainer in bf16 for 16 steps with
+     --profile_dir: the trace must be written and name the
+     training-rollout kernels.
 Then it prints one {"kernels": [...]} line and, last, the device line.
 It exits non-zero without a result when CUDA is unavailable.
 """
@@ -127,7 +142,12 @@ It exits non-zero without a result when CUDA is unavailable.
 import copy
 import dataclasses
 import json
+import os
+import shutil
+import signal
+import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1239,6 +1259,13 @@ def train_args(save_path, data_dir, n_steps, fused="on", cfg=XP_CONFIG,
     dcgan flagship, bench.py's smmnist-dcgan cell (batch 128, seq_len 15,
     o = 1) on synthetic digits; for kth-vgg, configs/kth.yaml (batch 100,
     seq_len 20, o = 2); `precision` is the trainer's --precision."""
+    return train_main.create_args().parse_args(train_argv(
+        save_path, data_dir, n_steps, fused, cfg, batch_size, precision))
+
+
+def train_argv(save_path, data_dir, n_steps, fused="on", cfg=XP_CONFIG,
+               batch_size=TRAIN_BATCH, precision="float32"):
+    """train_args's command line."""
     flags = dict(dataset=cfg["dataset"], data_dir=data_dir,
                  save_path=save_path, batch_size=batch_size, n_iter=n_steps,
                  log_interval=1, val_interval=n_steps, n_iter_test=1,
@@ -1254,7 +1281,14 @@ def train_args(save_path, data_dir, n_steps, fused="on", cfg=XP_CONFIG,
     args = [f"--{k}={v}" for k, v in flags.items()]
     args += ["--skipco"] if cfg["skipco"] else []
     args += ["--allow_synthetic"] if cfg["dataset"] == "smmnist" else []
-    return train_main.create_args().parse_args(args)
+    return args
+
+
+def training_rows(xp_dir):
+    """The training-step rows of a trainer's metrics.jsonl (its
+    validation rows apart)."""
+    with open(Path(xp_dir) / "metrics.jsonl") as f:
+        return [r for r in map(json.loads, f) if "loss" in r]
 
 
 @torch.no_grad()
@@ -1472,6 +1506,25 @@ def seeded_state(opt):
     return SRVP(model_config(vars(opt))).state_dict()
 
 
+def train_launches(opt, n_steps, n_vals):
+    """The launches of each kernel in a trainer run of n_steps steps and
+    n_vals validations: per step, the rollout's forward and backward and,
+    on vgg, 4 pools and 4 upsamples each way; a validation encodes its
+    conditioning frames once (4 pools) and decodes each chunk (4
+    upsamples), with the eager rollout; all in the compute dtype's
+    kernels."""
+    vgg = 4 if opt.archi == "vgg" else 0
+    val_chunks = opt.n_iter_test * (opt.n_samples_test
+                                    // opt.val_samples_chunk)
+    sfx = "_bf16" if opt.precision == "bfloat16" else ""
+    return {"train_rollout_fwd": n_steps,
+            "train_rollout_bwd": 2 * n_steps,
+            f"maxpool_fwd{sfx}": vgg * (n_steps + n_vals * opt.n_iter_test),
+            f"maxpool_bwd{sfx}": vgg * n_steps,
+            f"upsample_fwd{sfx}": vgg * (n_steps + n_vals * val_chunks),
+            f"upsample_bwd{sfx}": vgg * n_steps}
+
+
 def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
                nt_test, margin, held, seeded_check=False,
                precision="float32"):
@@ -1494,28 +1547,18 @@ def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
         write_kth_packed_tree(data_dir, cfg["nx"], SEED + 4)
     opt = train_args(str(xp_dir), str(data_dir), n_steps, cfg=cfg,
                      batch_size=batch_size, precision=precision)
-    # per step: the rollout's forward and backward and, on vgg, 4 pools
-    # and 4 upsamples each way; the validation at the last step encodes
-    # its conditioning frames once (4 pools) and decodes each chunk (4
-    # upsamples), with the eager rollout; all in the compute dtype's
-    # kernels
-    vgg = 4 if cfg["archi"] == "vgg" else 0
-    val_chunks = opt.n_iter_test * (opt.n_samples_test
-                                    // opt.val_samples_chunk)
-    sfx = "_bf16" if precision == "bfloat16" else ""
+    shutil.rmtree(xp_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    history = train_main.main(opt)
+    status = train_main.main(opt)
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    if status != 0:
+        raise SystemExit(f"{name} training exited with {status}")
+    history = training_rows(xp_dir)
     expect_launches(f"{name} training, {n_steps} steps, {precision}", counts,
-                    {"train_rollout_fwd": n_steps,
-                     "train_rollout_bwd": 2 * n_steps,
-                     f"maxpool_fwd{sfx}": vgg * (n_steps + opt.n_iter_test),
-                     f"maxpool_bwd{sfx}": vgg * n_steps,
-                     f"upsample_fwd{sfx}": vgg * (n_steps + val_chunks),
-                     f"upsample_bwd{sfx}": vgg * n_steps})
+                    train_launches(opt, n_steps, 1))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in history]
     if len(losses) != n_steps or not np.all(np.isfinite(losses)):
@@ -1582,6 +1625,236 @@ def bench_path():
     if not np.isfinite(line["rollout_frames_per_sec_per_chip"]):
         raise SystemExit(f"bench generation: {line}")
     return line
+
+
+# the resume phase: per arm (name, model, batch, steps, the step after
+# whose log line SIGTERM is sent, --precision), the trainer CLI as a child
+# process three times with RESUME_FLAGS: a run never stopped, a run
+# stopped by SIGTERM, and that run's --resume; each child with cuDNN's
+# deterministic algorithms (TRAINER_CHILD). The arms' children run side by
+# side on the card (together at most ~60 GB)
+RESUME_ARMS = [("dcgan float32", XP_CONFIG, TRAIN_BATCH, 12, 4, "float32"),
+               ("kth-vgg bfloat16", KTH_CONFIG, KTH_TRAIN_BATCH, 6, 2,
+                "bfloat16")]
+RESUME_FLAGS = ["--n_workers", "4", "--chkpt_interval", "4",
+                "--log_interval", "1"]
+CHILD_TIMEOUT_S = 300
+TRAINER_CHILD = """
+import json, sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+import chip_smoke
+from srvp_tpu_torch import train_main
+from srvp_tpu_torch.data import native
+status = train_main.main(train_main.create_args().parse_args(sys.argv[1:]))
+print("child_counts " + json.dumps(dict(launches=chip_smoke.launch_counts(),
+                                        native=native.served)), flush=True)
+sys.exit(status)
+"""
+# the --profile_dir run: the dcgan trainer in bf16 for PROFILE_RUN_STEPS
+# steps (the trace covers steps 10-15); the trace must name these kernels
+PROFILE_RUN_STEPS = 16
+PROFILED_KERNELS = ("train_rollout_fwd_kernel",
+                    "train_rollout_bwd_carry_kernel",
+                    "train_rollout_wgrad_kernel")
+
+
+class TrainerChild:
+    """The trainer CLI in a child process (TRAINER_CHILD), its output read
+    by a thread of its own; with `stop_after`, SIGTERM is sent once the
+    child logs that step. `result()` waits for it (killing it after
+    CHILD_TIMEOUT_S) and returns (exit code, output lines, the child's
+    kernel launch counts and native generator batches, seconds)."""
+
+    def __init__(self, argv, stop_after=None):
+        self.argv, self.stop_after, self.lines = argv, stop_after, []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", TRAINER_CHILD, *argv], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            if self.stop_after is not None \
+                    and line.startswith(f"[{self.stop_after}/"):
+                self.proc.send_signal(signal.SIGTERM)
+                self.stop_after = None
+        self.t_end = time.perf_counter()
+
+    def result(self):
+        left = CHILD_TIMEOUT_S - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait()
+        self.reader.join(timeout=30)
+        counts = next((json.loads(line.split(" ", 1)[1])
+                       for line in self.lines
+                       if line.startswith("child_counts ")), None)
+        if counts is None:
+            print("\n".join(self.lines[-40:]), flush=True)
+            raise SystemExit(f"trainer child {self.argv} printed no counts "
+                             f"(rc {rc})")
+        return rc, self.lines, counts, self.t_end - self.t0
+
+
+def resume_path():
+    """The resume phase (RESUME_ARMS): for each arm the trainer CLI run
+    never stopped and run stopped by SIGTERM (all arms' children at once),
+    then the stopped runs' --resume (at once); then resume_check on each.
+    Returns the arms' summaries."""
+    arms = []
+    for name, cfg, batch_size, n_steps, stop_after, precision in RESUME_ARMS:
+        tag = f"{cfg['dataset']}-{cfg['archi']}"
+        data_dir = WORK_DIR / f"data_{tag}"
+        if cfg["dataset"] == "kth" and not (data_dir / "packed_64").exists():
+            write_kth_packed_tree(data_dir, cfg["nx"], SEED + 4)
+        dirs = [WORK_DIR / f"resume_{name.replace(' ', '_')}_{k}"
+                for k in ("whole", "part")]
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+        argv = [train_argv(str(d), str(data_dir), n_steps, cfg=cfg,
+                           batch_size=batch_size, precision=precision)
+                + RESUME_FLAGS for d in dirs]
+        arms.append(dict(
+            name=name, n_steps=n_steps, stop_after=stop_after, dirs=dirs,
+            argv=argv, children=(TrainerChild(argv[0]),
+                                 TrainerChild(argv[1], stop_after)),
+            opt=train_main.create_args().parse_args(argv[1])))
+    for arm in arms:
+        arm["runs"] = {k: c.result() for k, c in
+                       zip(("whole", "stopped"), arm["children"])}
+        part = arm["dirs"][1]
+        arm["stopped_at"] = json.loads(
+            (part / "train_state.json").read_text())["step"]
+        arm["stopped_rows"] = training_rows(part)
+    resumed = [TrainerChild(arm["argv"][1] + ["--resume"]) for arm in arms]
+    for arm, child in zip(arms, resumed):
+        arm["runs"]["resumed"] = child.result()
+    return [resume_check(**{k: arm[k] for k in (
+        "name", "n_steps", "stop_after", "dirs", "opt", "runs", "stopped_at",
+        "stopped_rows")}) for arm in arms]
+
+
+def resume_check(name, n_steps, stop_after, dirs, opt, runs, stopped_at,
+                 stopped_rows):
+    """One arm of the resume phase: the stopped run exits with 143 and its
+    train_state.json names the step it stopped at, the resumed run says it
+    resumed there, its model.pt is bit-equal to the uninterrupted run's,
+    and so is every logged loss (metrics.jsonl holding each step once);
+    every child launched kernels 2-3 (and on vgg 4-7) exactly as its steps
+    and validations need, and on Moving MNIST the native generator served
+    every training batch. Returns the arm's summary."""
+    whole, part = dirs
+    rcs = {k: r[0] for k, r in runs.items()}
+    if rcs != {"whole": 0, "stopped": 143, "resumed": 0}:
+        for k, r in runs.items():
+            print(f"{name} {k}:\n" + "\n".join(r[1][-30:]), flush=True)
+        raise SystemExit(f"{name} resume: exit codes {rcs}")
+    if not stop_after <= stopped_at < n_steps \
+            or stopped_rows[-1]["step"] != stopped_at:
+        raise SystemExit(f"{name} resume: stopped at step {stopped_at}, "
+                         f"last logged {stopped_rows[-1]['step']}")
+    if f"Resumed from step {stopped_at}" not in runs["resumed"][1]:
+        raise SystemExit(f"{name} resume: the resumed run did not say it "
+                         f"resumed from step {stopped_at}")
+
+    steps = {"whole": (n_steps, 1), "stopped": (stopped_at, 0),
+             "resumed": (n_steps - stopped_at, 1)}
+    native_batches = {}
+    for k, (n, n_vals) in steps.items():
+        counts = runs[k][2]
+        expect_launches(f"{name} resume, {k} run", counts["launches"],
+                        train_launches(opt, n, n_vals))
+        native_batches[k] = counts["native"]["parts"]
+        if opt.dataset == "smmnist" and native_batches[k] < n:
+            raise SystemExit(f"{name} resume, {k} run: the native generator "
+                             f"served {native_batches[k]} batches for {n} "
+                             "steps")
+
+    # model.pt, and the periodic snapshots that the background writer took
+    # while the next steps were queued (at stopped_at, the stopped run's
+    # had no step after it)
+    differ = {}
+    for f in ["model.pt"] + [f"model_{k}.pt" for k in range(
+            opt.chkpt_interval, n_steps + 1, opt.chkpt_interval)]:
+        ref, got = (torch.load(d / f) for d in (whole, part))
+        differ.update({f"{f}:{k}": float((ref[k].double()
+                                          - got[k].double()).abs().max())
+                       for k in ref if not torch.equal(ref[k], got[k])})
+    ref_rows, rows = training_rows(whole), training_rows(part)
+    if [r["step"] for r in rows] != list(range(1, n_steps + 1)):
+        raise SystemExit(f"{name} resume: metrics.jsonl steps "
+                         f"{[r['step'] for r in rows]}")
+    loss_differ = [(a["step"], a["loss"], b["loss"])
+                   for a, b in zip(ref_rows, rows)
+                   if a["step"] > stopped_at and a["loss"] != b["loss"]]
+    summary = dict(
+        arm=name, steps=n_steps, stopped_at=stopped_at, exit_codes=rcs,
+        seconds={k: r[3] for k, r in runs.items()},
+        native_batches=native_batches,
+        launches={k: {n: c for n, c in r[2]["launches"].items() if c}
+                  for k, r in runs.items()},
+        model_pt_bit_equal=not differ, tensors_differ=len(differ),
+        max_abs_diff=max(differ.values(), default=0.0),
+        losses_after_resume_bit_equal=not loss_differ,
+        losses=[r["loss"] for r in rows])
+    print("resume_path " + json.dumps(summary), flush=True)
+    print(f"{name} resume: SIGTERM after step {stop_after} stopped the run "
+          f"at step {stopped_at} (exit 143); resumed to {n_steps}: model.pt "
+          f"and the periodic snapshots "
+          f"{'bit-equal' if not differ else 'DIFFER'} to the uninterrupted "
+          f"run's, losses after the resume "
+          f"{'bit-equal' if not loss_differ else 'DIFFER'}; native generator "
+          f"batches {native_batches}", flush=True)
+    if differ or loss_differ:
+        raise SystemExit(f"{name} resume: {len(differ)} tensors of model.pt "
+                         f"or the snapshots differ (max "
+                         f"{summary['max_abs_diff']:.3e}: "
+                         f"{sorted(differ)[:8]}); losses {loss_differ}")
+    return summary
+
+
+def profile_path():
+    """The dcgan trainer in bf16 with --profile_dir: a trace of steps 10-15
+    is written and names the training-rollout kernels; exact launch counts.
+    Returns the trace's kernel device time by name (ms over its steps)."""
+    xp_dir = WORK_DIR / "profile_smmnist-dcgan"
+    shutil.rmtree(xp_dir, ignore_errors=True)
+    opt = train_args(str(xp_dir), str(WORK_DIR / "data_smmnist-dcgan"),
+                     PROFILE_RUN_STEPS, precision="bfloat16")
+    opt.profile_dir = str(xp_dir / "profile")
+    reset_launch_counts()
+    status = train_main.main(opt)
+    expect_launches("dcgan bf16 training with --profile_dir", launch_counts(),
+                    train_launches(opt, PROFILE_RUN_STEPS, 1))
+    traces = sorted((xp_dir / "profile").glob("*.json"))
+    if status != 0 or len(traces) != 1:
+        raise SystemExit(f"--profile_dir: status {status}, traces {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            kernels[ev["name"]] = kernels.get(ev["name"], 0.0) \
+                + ev.get("dur", 0) / 1e3
+    missing = [k for k in PROFILED_KERNELS
+               if not any(k in name for name in kernels)]
+    if missing:
+        raise SystemExit(f"--profile_dir: the trace {traces[0]} names no "
+                         f"{missing} ({len(kernels)} kernel names)")
+    busy = sum(kernels.values())
+    print(f"--profile_dir: {traces[0].name}, {traces[0].stat().st_size} "
+          f"bytes, {len(kernels)} kernel names, device busy {busy:.2f} ms "
+          f"over steps 10-15; the rollout kernels "
+          f"{sum(v for k, v in kernels.items() if 'rollout' in k):.3f} ms",
+          flush=True)
+    return kernels
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -1684,6 +1957,14 @@ def main():
     conv_bench, conv_counts, _ = conv_stage_path(
         KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"], SEED + 12)
     print(f"conv stage phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the trainer's run control: SIGTERM and --resume in child processes
+    # (dcgan fp32, KTH bf16), then a --profile_dir trace
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resume_path()
+    profile_path()
+    print(f"run-control phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     src = "srvp_tpu_torch/csrc/rollout_train.cu"
     kernels = [

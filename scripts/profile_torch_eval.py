@@ -85,7 +85,7 @@ def main():
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.chunks
 
-    busy_ms, own, top = kernel_table(prof, args.chunks, "chunk")
+    busy_ms, own, _, top = kernel_table(prof, args.chunks, "chunk")
     print(json.dumps({
         "config": args.config, "device": torch.cuda.get_device_name(0),
         "nvidia_smi": chip_smoke.nvidia_smi_line(),

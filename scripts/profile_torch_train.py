@@ -2,7 +2,7 @@
 """Where the time of the port's training step goes, on one GPU.
 
     python scripts/profile_torch_train.py [--config smmnist-dcgan|kth-vgg]
-        [--steps 5] [--seed 0]
+        [--precision float32|bfloat16] [--steps 5] [--seed 0]
 
 Runs `srvp_tpu_torch.train_lib.train_step` at the full width of a published
 configuration with its seeded training init: `smmnist-dcgan`
@@ -11,13 +11,15 @@ configuration with its seeded training init: `smmnist-dcgan`
 (chip_smoke.KTH_CONFIG) on batches of 100 windows of 20 frames from a
 synthetic packed KTH tree, o = 2; each from the trainer's own loader, with
 the training rollout and the vgg pools and upsamples through their CUDA
-kernels: three warm-up steps, then `--steps` steps timed by the host clock
-(ending in a synchronise) and traced by torch.profiler. Prints one JSON
-line: the card's name and power limit, ms per step and frames/s, the peak
-device memory, device-busy ms per step (the sum of kernel times; one
-stream, so kernels do not overlap), the device's idle share, the share of
-the port's own kernels (rollout, spatial), and the kernels grouped by name
-with their share of device time. Needs CUDA.
+kernels, the encoder and decoder in `--precision` (the trainer's flag):
+three warm-up steps, then `--steps` steps timed by the host clock (ending
+in a synchronise) and traced by torch.profiler. Prints one JSON line: the
+card's name and power limit, ms per step and frames/s, the peak device
+memory, device-busy ms per step (the sum of kernel times; one stream, so
+kernels do not overlap), the device's idle share, the share of the port's
+own kernels (rollout, spatial), the device time by kernel family
+(FAMILIES), the kernels grouped by name with their share of device time,
+and the ATen ops that launched the most device time. Needs CUDA.
 """
 
 import argparse
@@ -39,15 +41,56 @@ from srvp_tpu_torch.data.loader import infinite_batches  # noqa: E402
 
 import chip_smoke  # noqa: E402  (configurations, trainer flags, data)
 
+# the kernels and ops listed by name
+TOP = 15
 # the port's own kernels, by a part of their names
 OWN_KERNELS = {"rollout": ("rollout",),
                "spatial": ("maxpool_fwd_kernel", "maxpool_bwd_kernel",
                            "upsample_fwd_kernel", "upsample_bwd_kernel")}
 
 
+# kernel families by a part of their names, the first that matches: the
+# port's kernels; cuDNN's batch norm (fp32) and its NCHW <-> NHWC layout
+# transposes; cuDNN's convolutions, FFT ones (complex GEMMs and pointwise
+# products) included; the remaining GEMMs; ATen's reductions (the bf16
+# batch norm's statistics among them) and elementwise kernels (its
+# normalisation, casts and the LeakyReLU among them)
+FAMILIES = [
+    ("rollout (port)", ("rollout",)),
+    ("pool/upsample (port)", OWN_KERNELS["spatial"]),
+    ("batch norm (cuDNN, ATen)", ("bn_fw", "bn_bw", "batch_norm",
+                                  "batchnorm")),
+    ("layout transpose (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "fft",
+                             "winograd", "complex", "cf32", "cudnn")),
+    ("GEMM (cuBLAS, cuDNN GEMM convs)", ("gemm", "cutlass", "cublas")),
+    ("reduction (ATen)", ("reduce",)),
+    ("elementwise (ATen)", ("elementwise", "vectorized", "unrolled")),
+    ("copy", ("copy", "memcpy", "memset")),
+]
+
+
+def op_table(prof, n, unit):
+    """The TOP ATen ops by the device time of the kernels they launched
+    themselves (the profiler's self device time), over n units."""
+    ops = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    return [{"op": key, f"ms_per_{unit}": ms, f"calls_per_{unit}": calls}
+            for key, ms, calls in sorted(ops, key=lambda t: -t[1])[:TOP]]
+
+
+def family(name):
+    low = name.lower()
+    return next((fam for fam, parts in FAMILIES
+                 if any(part.lower() in low for part in parts)), "other")
+
+
 def kernel_table(prof, n, unit):
-    """(device-busy ms per unit, the port's kernels' shares, the top 15
-    kernels by device time) of a torch.profiler run over n units."""
+    """(device-busy ms per unit, the port's kernels' shares, device time by
+    family, the TOP kernels by device time) of a torch.profiler run over n
+    units."""
     kernels = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA \
@@ -59,16 +102,24 @@ def kernel_table(prof, n, unit):
     own = {group: sum(v[0] for name, v in kernels.items()
                       if any(part in name for part in parts)) / n / busy_ms
            for group, parts in OWN_KERNELS.items()}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    return busy_ms, own, [{"name": name[:90], f"ms_per_{unit}": v[0] / n,
-                           f"calls_per_{unit}": v[1] / n,
-                           "share": v[0] / n / busy_ms} for name, v in top]
+    fams = {}
+    for name, v in kernels.items():
+        fams[family(name)] = fams.get(family(name), 0.0) + v[0] / n
+    fams = {fam: {f"ms_per_{unit}": ms, "share": ms / busy_ms}
+            for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1])}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP]
+    return busy_ms, own, fams, [
+        {"name": name[:90], f"ms_per_{unit}": v[0] / n,
+         f"calls_per_{unit}": v[1] / n, "share": v[0] / n / busy_ms}
+        for name, v in top]
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", choices=["smmnist-dcgan", "kth-vgg"],
                    default="smmnist-dcgan")
+    p.add_argument("--precision", choices=["float32", "bfloat16"],
+                   default="float32")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
@@ -84,9 +135,11 @@ def run(args, tmp):
         chip_smoke.write_kth_packed_tree(tmp, 64, args.seed)
         opt = chip_smoke.train_args(tmp, tmp, args.steps,
                                     cfg=chip_smoke.KTH_CONFIG,
-                                    batch_size=chip_smoke.KTH_TRAIN_BATCH)
+                                    batch_size=chip_smoke.KTH_TRAIN_BATCH,
+                                    precision=args.precision)
     else:
-        opt = chip_smoke.train_args(tmp, tmp, args.steps)
+        opt = chip_smoke.train_args(tmp, tmp, args.steps,
+                                    precision=args.precision)
     opt.seed = args.seed
     hp = train_main.train_hparams(opt)
     torch.manual_seed(opt.seed)
@@ -111,10 +164,11 @@ def run(args, tmp):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
 
-    busy_ms, own, top = kernel_table(prof, args.steps, "step")
+    busy_ms, own, fams, top = kernel_table(prof, args.steps, "step")
     frames = opt.seq_len * opt.batch_size
     print(json.dumps({
-        "config": args.config, "device": torch.cuda.get_device_name(0),
+        "config": args.config, "precision": args.precision,
+        "device": torch.cuda.get_device_name(0),
         "nvidia_smi": chip_smoke.nvidia_smi_line(),
         "steps": args.steps, "batch": opt.batch_size, "seq_len": opt.seq_len,
         "oversampling": opt.n_euler_steps, "loss": float(metrics["loss"]),
@@ -122,7 +176,8 @@ def run(args, tmp):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "own_kernel_shares": own, "kernels": top}))
+        "own_kernel_shares": own, "families": fams, "kernels": top,
+        "ops": op_table(prof, args.steps, "step")}))
 
 
 if __name__ == "__main__":

@@ -75,18 +75,22 @@ def create_args():
                    help="Not ported (several hosts).")
     g.add_argument("--process_id", type=int, metavar="RANK", default=None,
                    help="Not ported (several hosts).")
-    g.add_argument("--n_workers", type=int, metavar="NB", default=4,
-                   help="Not ported: the loader runs in the trainer's "
-                        "thread (its batches do not depend on it).")
-    g.add_argument("--profile_dir", type=str, metavar="DIR", default=None,
-                   help="Not ported (a torch.profiler trace).")
-    g.add_argument("--resume", action="store_true",
-                   help="Not ported (full train-state checkpoints).")
     g.add_argument("--steps_per_dispatch", type=int, metavar="K", default=1,
                    help="Only 1 is ported.")
-    g.add_argument("--no_device_compose", action="store_true",
-                   help="Not ported: Moving MNIST frames are always "
-                        "composited on the device.")
+
+    r = p.add_argument_group("Run control")
+    r.add_argument("--n_workers", type=int, metavar="NB", default=4,
+                   help="Loader threads (the batches do not depend on "
+                        "them).")
+    r.add_argument("--profile_dir", type=str, metavar="DIR", default=None,
+                   help="Write a torch.profiler trace of steps 10-15 to "
+                        "DIR.")
+    r.add_argument("--resume", action="store_true",
+                   help="Continue from the train state in save_path (same "
+                        "--seed for the same data stream).")
+    r.add_argument("--no_device_compose", action="store_true",
+                   help="Moving MNIST: composite frames on the host, not "
+                        "on the device.")
 
     m = p.add_argument_group("Model Configuration")
     m.add_argument("--nhx", type=int, metavar="SIZE", default=128,
@@ -195,17 +199,13 @@ def create_args():
 def check_ported(opt):
     """Raises NotImplementedError for a flag whose part is not ported."""
     todo = {
-        "--resume": opt.resume,
         "--steps_per_dispatch > 1": opt.steps_per_dispatch != 1,
-        "--no_device_compose": opt.no_device_compose,
         "--n_devices > 1": opt.n_devices not in (None, 1),
         "--local_rank": opt.local_rank != 0,
         "--n_dcn": opt.n_dcn != 1,
         "--coordinator_address": opt.coordinator_address is not None,
         "--num_processes": opt.num_processes is not None,
         "--process_id": opt.process_id is not None,
-        "--n_workers": opt.n_workers != 4,
-        "--profile_dir": opt.profile_dir is not None,
         "--subsampling": opt.subsampling != 8,
         f"--dataset {opt.dataset}": opt.dataset not in ("smmnist", "kth"),
     }

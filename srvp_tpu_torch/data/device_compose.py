@@ -51,7 +51,16 @@ def parts_collate(items):
 
 
 def to_device(batch, device):
-    """A host batch (parts dict or uint8 array) as tensors on `device`."""
+    """A host batch (parts dict or uint8 array) as tensors on `device`. To a
+    CUDA device each array is copied into pinned memory of its own and sent
+    with a non-blocking copy, so that the next batch's transfer overlaps the
+    running step (srvp_tpu/train_main.py `device_batches`); torch's pinned
+    allocator keeps a buffer until its copy has finished."""
+    def send(v):
+        t = torch.from_numpy(v)
+        if torch.device(device).type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
     if is_parts_batch(batch):
-        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    return torch.from_numpy(batch).to(device)
+        return {k: send(v) for k, v in batch.items()}
+    return send(batch)

@@ -6,9 +6,10 @@ Digits move linearly in continuous time; when a step crosses a frame border
 the exact intersection is solved retroactively, the rest of the step is
 travelled with the post-bounce velocity, and in stochastic mode a new random
 speed is drawn at each bounce. Random draws follow the JAX package's order
-exactly, so the same RandomState gives the same video. Digit images come
-from the MNIST IDX archive under data_dir, or, where it is absent and
-`allow_synthetic` is set, from procedural glyphs.
+exactly, so the same RandomState gives the same video; whole batches come
+from the native generator (data/native.py), bit-identical to these items.
+Digit images come from the MNIST IDX archive under data_dir, or, where it
+is absent and `allow_synthetic` is set, from procedural glyphs.
 """
 
 import gzip
@@ -17,6 +18,7 @@ import struct
 
 import numpy as np
 
+from srvp_tpu_torch.data import native
 from srvp_tpu_torch.data.base import VideoDataset
 
 EPS = 1e-8
@@ -89,6 +91,7 @@ class MovingMNIST(VideoDataset):
         self.deterministic = deterministic
         self.num_digits = num_digits
         self.train = train
+        self._pack = None
 
     def change_seq_len(self, seq_len):
         self.seq_len = seq_len
@@ -215,6 +218,33 @@ class MovingMNIST(VideoDataset):
             digits[n] = img
             pos[n] = [(sx, sy) for sx, sy, _, _ in traj]
         return digits, pos
+
+    def _digit_pack(self):
+        if self._pack is None:
+            self._pack = native.DigitPack(self.data, self.frame_size)
+        return self._pack
+
+    def get_batch_seeded(self, indices, seeds, n_threads=4):
+        """The native generator's batch of videos, (B, T, H, W) uint8, video
+        i bit-equal to get_item(indices[i], RandomState(seeds[i])) (a
+        training video does not depend on its index)."""
+        assert self.train
+        return native.mmnist_generate_batch(
+            self._digit_pack(), self.frame_size, self.seq_len,
+            self.max_speed, self.deterministic, self.num_digits, seeds,
+            n_threads)
+
+    def get_parts_batch_seeded(self, indices, seeds, n_threads=4):
+        """The native generator's parts batch, {"digits": (B, D, h, w)
+        uint8, "pos": (B, D, T, 2) int32}, the draws of get_item_parts with
+        RandomState(seeds[i]) (counterpart of
+        srvp_tpu/data/mmnist.py:244)."""
+        assert self.train
+        digits, pos = native.mmnist_parts_batch(
+            self._digit_pack(), self.frame_size, self.seq_len,
+            self.max_speed, self.deterministic, self.num_digits, seeds,
+            n_threads)
+        return {"digits": digits, "pos": pos}
 
     @classmethod
     def make_dataset(cls, data_dir, nx, seq_len, max_speed, deterministic,

@@ -54,10 +54,14 @@ def lr_factor(hp):
 
 @dataclasses.dataclass
 class TrainState:
+    """The model, Adam, its schedule, the step and the generator that draws
+    the training noise (srvp_tpu/train_lib.py:30 `TrainState`: params,
+    bn_state, opt_state, step, rng)."""
     model: SRVP
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
+    generator: torch.Generator | None = None
 
 
 def make_train_state(model, hp):
@@ -65,6 +69,32 @@ def make_train_state(model, hp):
     optimizer = torch.optim.Adam(model.parameters(), lr=hp.lr)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lr_factor(hp))
     return TrainState(model, optimizer, scheduler)
+
+
+def state_dict(ts):
+    """The whole train state as one nested dict: the model's parameters and
+    buffers (batch-norm statistics and counts included), Adam's moments and
+    steps, the schedule's position, the step and the generator's state (a
+    CPU byte tensor, for a CUDA generator too). Its tensors are the live
+    ones, except the generator's: copy them before the next step changes
+    them (utils/checkpoint.AsyncCheckpointer.snapshot)."""
+    return {"model": ts.model.state_dict(),
+            "optimizer": ts.optimizer.state_dict(),
+            "scheduler": ts.scheduler.state_dict(), "step": ts.step,
+            "generator": (None if ts.generator is None
+                          else ts.generator.get_state())}
+
+
+def load_state_dict(ts, sd):
+    """Restores `state_dict`'s output, tensors on any device, into `ts`
+    in place. The schedule's lambda is not in it: `ts`'s, made from hp,
+    stays."""
+    ts.model.load_state_dict(sd["model"])
+    ts.optimizer.load_state_dict(sd["optimizer"])
+    ts.scheduler.load_state_dict(sd["scheduler"])
+    ts.step = int(sd["step"])
+    if ts.generator is not None:
+        ts.generator.set_state(sd["generator"].cpu())
 
 
 def init_train_state(cfg: SRVPConfig, hp, device, res_gain=1.41):

@@ -78,9 +78,10 @@ def test_command_line_overrides_the_config_file(tmp_path):
 
 
 def test_keep_chkpt_keeps_the_newest_snapshots(tmp_path):
-    train_main.main(parse(tmp_path, "--device", "cpu", "--n_iter", "4",
-                          "--val_interval", "4", "--chkpt_interval", "1",
-                          "--keep_chkpt", "1"))
+    assert train_main.main(parse(tmp_path, "--device", "cpu", "--n_iter",
+                                 "4", "--val_interval", "4",
+                                 "--chkpt_interval", "1",
+                                 "--keep_chkpt", "1")) == 0
     kept = sorted(p.name for p in (tmp_path / "xp").glob("model*.pt"))
     assert kept == ["model.pt", "model_4.pt", "model_best.pt"]
 
@@ -113,8 +114,7 @@ def test_mixed_precision_flags_select_the_jax_compute_dtype(tmp_path, flags,
 @pytest.mark.parametrize("flags", [
     ["--local_rank", "1"], ["--n_dcn", "2"],
     ["--coordinator_address", "auto"], ["--num_processes", "2"],
-    ["--process_id", "1"], ["--n_workers", "8"], ["--profile_dir", "p"],
-    ["--subsampling", "4"]])
+    ["--process_id", "1"], ["--subsampling", "4"]])
 def test_jax_flags_of_unported_parts_raise(tmp_path, flags):
     opt = parse(tmp_path, "--device", "cpu", *flags)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

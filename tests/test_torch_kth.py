@@ -31,7 +31,7 @@ from srvp_tpu.data.loader import DataLoader as JaxLoader
 from srvp_tpu.models import layers as jlayers
 from srvp_tpu.models import srvp as jsrvp
 from srvp_tpu.objectives import elbo_loss as jelbo
-from srvp_tpu_torch import eval_lib, test_main, train_main
+from srvp_tpu_torch import eval_lib, test_main
 from srvp_tpu_torch.args import create_args
 from srvp_tpu_torch.data.base import collate_uint8
 from srvp_tpu_torch.data.kth import KTH
@@ -40,6 +40,7 @@ from srvp_tpu_torch.kernels.spatial import use_kernels
 from srvp_tpu_torch.objectives import elbo_loss
 from srvp_tpu_torch.utils.weights import bn_state_from_port, state_dict_from_jax
 from tests.test_torch_eval import PSNR_ATOL, SSIM_ATOL, assert_u8_close
+from tests.test_torch_train_cli import train
 from tests.test_torch_train import (GRAD_ATOL, GRAD_RTOL, LOSS_RTOL,
                                     assert_bn_close, grads_in_port_layout,
                                     jax_value_and_grad, two_pass_bn_stats)
@@ -268,8 +269,8 @@ def test_cli_trains_kth_vgg_in_bfloat16(tree, tmp_path):
         "--log_interval", "1", "--val_interval", "2", "--n_iter_test", "1",
         "--n_samples_test", "2", "--val_samples_chunk", "2",
         "--batch_size_test", "2", "--seed", "3"])
-    history = train_main.main(opt)
-    assert [h["itr"] for h in history] == [1, 2]
+    history = train(opt)
+    assert [h["step"] for h in history] == [1, 2]
     assert all(np.isfinite(h["loss"]) for h in history)
     sd = torch.load(xp / "model.pt")
     assert all(v.dtype in (torch.float32, torch.int64) for v in sd.values())
@@ -290,8 +291,8 @@ def test_cli_trains_and_serves_kth_vgg(tree, tmp_path):
         "--log_interval", "1", "--val_interval", "3", "--n_iter_test", "1",
         "--n_samples_test", "2", "--val_samples_chunk", "2",
         "--batch_size_test", "2", "--seed", "3"])
-    history = train_main.main(opt)
-    assert [h["itr"] for h in history] == [1, 2, 3]
+    history = train(opt)
+    assert [h["step"] for h in history] == [1, 2, 3]
     assert all(np.isfinite(h["loss"]) for h in history)
     assert (xp / "model_best.pt").exists()
     config = json.load(open(xp / "config.json"))

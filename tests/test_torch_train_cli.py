@@ -1,8 +1,8 @@
 """The port's trainer CLI on the CPU at tiny widths: it trains, logs finite
-losses, validates, writes a model.pt that the port's test_main evaluates,
-refuses CUDA where there is none, trains in bfloat16 under the JAX
-trainer's mixed-precision flags, and rejects the flags of parts that are
-not ported yet."""
+losses as the JAX package's {"step", "wall_s", ...} rows, validates,
+writes a model.pt that the port's test_main evaluates, refuses CUDA where
+there is none, trains in bfloat16 under the JAX trainer's mixed-precision
+flags, and rejects the flags of parts that are not ported yet."""
 
 import json
 
@@ -30,15 +30,29 @@ def parse(tmp_path, *extra):
                 "--save_path", str(tmp_path / "xp"), *extra])
 
 
+def train(opt):
+    """Runs the trainer to its end; returns its metrics.jsonl rows of
+    training steps (the validation rows apart)."""
+    assert train_main.main(opt) == 0
+    with open(f"{opt.save_path}/metrics.jsonl") as f:
+        return [r for r in map(json.loads, f) if "loss" in r]
+
+
 def test_trains_and_test_main_serves_the_checkpoint(tmp_path):
-    history = train_main.main(parse(tmp_path, "--device", "cpu",
-                                    "--n_iter", "4", "--val_interval", "2",
-                                    "--chkpt_interval", "4"))
     xp = tmp_path / "xp"
-    assert [h["itr"] for h in history] == [1, 2, 3, 4]
+    assert train_main.main(parse(tmp_path, "--device", "cpu", "--n_iter",
+                                 "4", "--val_interval", "2",
+                                 "--chkpt_interval", "4")) == 0
+    logged = [json.loads(line)
+              for line in (xp / "metrics.jsonl").read_text().splitlines()]
+    history = [r for r in logged if "loss" in r]
+    assert [h["step"] for h in history] == [1, 2, 3, 4]
     assert all(np.isfinite(h["loss"]) and h["lr"] == 3e-4 for h in history)
-    logged = [json.loads(line) for line in open(xp / "metrics.jsonl")]
-    assert logged == history
+    assert all(set(h) == {"step", "wall_s", "fps", "loss", "lr", "nll",
+                          "kl_y_0", "kl_z", "l2_res"} for h in history)
+    val = [r for r in logged if "val_metric" in r]
+    assert [(r["step"], set(r)) for r in val] == [
+        (s, {"step", "wall_s", "val_metric"}) for s in (2, 4)]
     for name in ("model.pt", "model_best.pt", "model_4.pt", "config.json"):
         assert (xp / name).exists(), name
     config = json.load(open(xp / "config.json"))
@@ -63,8 +77,8 @@ def test_trains_and_test_main_serves_the_checkpoint(tmp_path):
 def test_kernel_and_eager_rollout_train_alike(tmp_path):
     """--fused_rollout on (the kernel wrapper, on the CPU its plain
     version) and off (the eager loop) take the same steps."""
-    runs = [train_main.main(parse(tmp_path / f, "--device", "cpu",
-                                  "--n_iter", "2", "--fused_rollout", f))
+    runs = [train(parse(tmp_path / f, "--device", "cpu", "--n_iter", "2",
+                        "--fused_rollout", f))
             for f in ("on", "off")]
     for a, b in zip(*runs):
         np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
@@ -98,8 +112,8 @@ def test_mixed_precision_flags_train(tmp_path, flags, dtype, capsys):
     opt = parse(tmp_path, "--device", "cpu", "--n_iter", "2",
                 "--val_interval", "2", *flags)
     assert train_main.train_hparams(opt).compute_dtype == dtype
-    history = train_main.main(opt)
-    assert [h["itr"] for h in history] == [1, 2]
+    history = train(opt)
+    assert [h["step"] for h in history] == [1, 2]
     assert all(np.isfinite(h["loss"]) for h in history)
     name = str(dtype).split(".")[-1]
     assert f"compute dtype {name}" in capsys.readouterr().out
@@ -110,8 +124,8 @@ def test_mixed_precision_flags_train(tmp_path, flags, dtype, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--steps_per_dispatch", "2"], ["--n_devices", "2"],
-    ["--dataset", "human"], ["--dataset", "bair"], ["--no_device_compose"]])
+    ["--steps_per_dispatch", "2"], ["--n_devices", "2"],
+    ["--dataset", "human"], ["--dataset", "bair"]])
 def test_flags_of_unported_parts_raise(tmp_path, flags):
     opt = parse(tmp_path, "--device", "cpu", *flags)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

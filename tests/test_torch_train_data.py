@@ -2,7 +2,8 @@
 path: the same seeds give bit-equal digits, items, parts, folds and loader
 batches, and the on-device compositor gives the frames of get_item. The JAX
 loader is fed through adapters that expose only `get_item`, so it takes its
-per-item numpy path and never its native engine."""
+per-item numpy path and never its native engine; the port's loader takes
+its batches from the port's native generator (data/native.py)."""
 
 import numpy as np
 import pytest
