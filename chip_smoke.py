@@ -135,6 +135,22 @@ Phases, each of which fails the script:
      counts printed). Then the dcgan trainer in bf16 for 16 steps with
      --profile_dir: the trace must be written and name the
      training-rollout kernels.
+ 15. main path, dispatch windows on the card (DISPATCH_ARMS): the trainer
+     CLI with --steps_per_dispatch K (train_lib.WindowStep: the first
+     window eager, then one CUDA graph of K steps replayed a window,
+     released before each validation and captured again) against K = 1
+     with the same flags, as child processes side by side in waves that
+     fit the card (DISPATCH_WAVES), cuDNN deterministic, --log_interval 4,
+     a validation and periodic checkpoints inside the run: dcgan fp32 and
+     bf16 16 steps and KTH bf16 8 at K = 4, KTH fp32 4 at K = 2. Each K
+     run's model.pt and logged losses within rtol 2e-5 / atol 1e-6 of the
+     K = 1 run's (the CLI test's tolerance; the distance in ulps printed),
+     two K = 4 runs bit-equal (dcgan), a K = 4 run stopped by SIGTERM and
+     resumed bit-equal to the uninterrupted one (dcgan fp32), exact launch
+     counts from the graphs' per-replay accounting; ms per step, frames/s,
+     peak reserved memory and the allocations that failed (cuDNN then
+     takes another algorithm) printed beside the K = 1 run's (children
+     share the card: a record, not a measurement).
 Then it prints one {"kernels": [...]} line and, last, the device line.
 It exits non-zero without a result when CUDA is unavailable.
 """
@@ -161,6 +177,7 @@ from srvp_tpu_torch.config import model_config, strict_fp32
 from srvp_tpu_torch.data.device_compose import materialize, to_device
 from srvp_tpu_torch.kernels import build as kbuild
 from srvp_tpu_torch.kernels import conv_stage as kcs
+from srvp_tpu_torch.kernels import launches as klaunches
 from srvp_tpu_torch.kernels import parity
 from srvp_tpu_torch.kernels.peaks import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,
                                          PEAK_HBM_BYTES, PEAK_TF32_FLOPS,
@@ -1012,7 +1029,7 @@ def conv_stage_path(n_frames, seed):
     full-size chain (check_conv_chain), with exact launch counts. Returns
     ({run: {leg: ms}}, launch counts, the chain's row)."""
     cin, _, hw = WORKHORSE
-    reset_launch_counts()
+    klaunches.reset()
     bench = {}
     for extra in BENCH_RUNS:
         bench[" ".join(extra)] = bench_conv_stage.run(
@@ -1022,7 +1039,7 @@ def conv_stage_path(n_frames, seed):
                 "--cudnn", *extra]))
         torch.cuda.empty_cache()
     chain = check_conv_chain(n_frames, seed)
-    counts = launch_counts()
+    counts = klaunches.counts()
     per_leg = (BENCH_REPS + 1) * (BENCH_INNER + 1)
     expect_launches("conv stage path", counts, dict(
         conv3x3_block=2 * per_leg + 3, conv3x3_clamped=2 * per_leg))
@@ -1117,29 +1134,6 @@ def write_test_set(cfg, data_dir, n_videos, nt_test, seed):
                             sequences=seqs)
 
 
-# the kernels line's name of each spatial kernel (kernels/spatial.py's key)
-SPATIAL_NAMES = {"pool_fwd": "maxpool_fwd", "pool_bwd": "maxpool_bwd",
-                 "up_fwd": "upsample_fwd", "up_bwd": "upsample_bwd"}
-
-
-def launch_counts():
-    return dict(prior_rollout=krollout.launches,
-                train_rollout_fwd=krollout_train.fwd_launches,
-                train_rollout_bwd=krollout_train.bwd_launches,
-                **{SPATIAL_NAMES[k] + ("_bf16" if d == torch.bfloat16
-                                       else ""): n
-                   for (k, d), n in krspatial.launches.items()},
-                conv3x3_block=kcs.block_launches,
-                conv3x3_clamped=kcs.clamped_launches)
-
-
-def reset_launch_counts():
-    krollout.launches = 0
-    krollout_train.fwd_launches = krollout_train.bwd_launches = 0
-    krspatial.reset_launches()
-    kcs.block_launches = kcs.clamped_launches = 0
-
-
 def expect_launches(what, counts, expected):
     """Fails unless every kernel launched exactly as often as expected."""
     expected = {k: expected.get(k, 0) for k in counts}
@@ -1189,9 +1183,9 @@ def eval_path(cfg, n_videos, nt_test, model_seed):
     vgg = 1 if cfg["archi"] == "vgg" else 0
     runs = {}
     for fused in ("on", "off"):
-        reset_launch_counts()
+        klaunches.reset()
         runs[fused] = run_cli(xp_dir, data_dir, fused, nt_test)
-        counts = launch_counts()
+        counts = klaunches.counts()
         expect_launches(f"{name} evaluation, rollout {fused}", counts, dict(
             prior_rollout=n_chunks if fused == "on" else 0,
             maxpool_fwd=4 * vgg * n_chunks, upsample_fwd=8 * vgg * n_chunks))
@@ -1549,11 +1543,11 @@ def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
                      batch_size=batch_size, precision=precision)
     shutil.rmtree(xp_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    klaunches.reset()
     t0 = time.perf_counter()
     status = train_main.main(opt)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = klaunches.counts()
     if status != 0:
         raise SystemExit(f"{name} training exited with {status}")
     history = training_rows(xp_dir)
@@ -1644,12 +1638,16 @@ import json, sys
 import torch
 torch.backends.cudnn.deterministic = True
 torch.backends.cudnn.benchmark = False
-import chip_smoke
 from srvp_tpu_torch import train_main
 from srvp_tpu_torch.data import native
+from srvp_tpu_torch.kernels import launches
 status = train_main.main(train_main.create_args().parse_args(sys.argv[1:]))
-print("child_counts " + json.dumps(dict(launches=chip_smoke.launch_counts(),
-                                        native=native.served)), flush=True)
+print("child_counts " + json.dumps(dict(
+    launches=launches.counts(), native=native.served,
+    peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+    peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+    alloc_retries=torch.cuda.memory_stats().get("num_alloc_retries", 0),
+    ooms=torch.cuda.memory_stats().get("num_ooms", 0))), flush=True)
 sys.exit(status)
 """
 # the --profile_dir run: the dcgan trainer in bf16 for PROFILE_RUN_STEPS
@@ -1830,9 +1828,10 @@ def profile_path():
     opt = train_args(str(xp_dir), str(WORK_DIR / "data_smmnist-dcgan"),
                      PROFILE_RUN_STEPS, precision="bfloat16")
     opt.profile_dir = str(xp_dir / "profile")
-    reset_launch_counts()
+    klaunches.reset()
     status = train_main.main(opt)
-    expect_launches("dcgan bf16 training with --profile_dir", launch_counts(),
+    expect_launches("dcgan bf16 training with --profile_dir",
+                    klaunches.counts(),
                     train_launches(opt, PROFILE_RUN_STEPS, 1))
     traces = sorted((xp_dir / "profile").glob("*.json"))
     if status != 0 or len(traces) != 1:
@@ -1855,6 +1854,223 @@ def profile_path():
           f"{sum(v for k, v in kernels.items() if 'rollout' in k):.3f} ms",
           flush=True)
     return kernels
+
+
+# the dispatch phase: per arm (name, model, batch, steps, K, --precision,
+# --val_interval, --chkpt_interval, the step after whose log line SIGTERM
+# is sent to a K run or None), the trainer CLI with --steps_per_dispatch K
+# against K = 1, each with DISPATCH_FLAGS (TRAINER_CHILD: cuDNN's
+# deterministic algorithms, no autotuning); an arm's runs are those that
+# DISPATCH_WAVES names: K = 1 ("k1"), K ("k"), K again, K stopped by
+# SIGTERM and its --resume at K
+DISPATCH_ARMS = [
+    ("dcgan float32", XP_CONFIG, TRAIN_BATCH, 16, 4, "float32", 8, 4, 4),
+    ("dcgan bfloat16", XP_CONFIG, TRAIN_BATCH, 16, 4, "bfloat16", 8, 4,
+     None),
+    ("kth-vgg bfloat16", KTH_CONFIG, KTH_TRAIN_BATCH, 8, 4, "bfloat16", 4, 4,
+     None),
+    ("kth-vgg float32", KTH_CONFIG, KTH_TRAIN_BATCH, 4, 2, "float32", 4, 2,
+     None)]
+DISPATCH_FLAGS = ["--n_workers", "4", "--log_interval", "4"]
+# the children side by side, in waves that fit the card (a run's peak,
+# PERF.md: dcgan 4-8 GB, KTH bf16 about 30 and fp32 about 60)
+DISPATCH_WAVES = [
+    [("dcgan float32", k) for k in ("k1", "k", "k_again", "stopped")]
+    + [("dcgan bfloat16", k) for k in ("k1", "k", "k_again")],
+    [("dcgan float32", "resumed"), ("kth-vgg bfloat16", "k1"),
+     ("kth-vgg bfloat16", "k")],
+    [("kth-vgg float32", "k")],
+    [("kth-vgg float32", "k1")]]
+
+
+def ulp_distance(a, b):
+    """The largest distance of two float32 tensors in units in the last
+    place (0: the same bits)."""
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def model_distance(ref_path, got_path):
+    """(max |got - ref| over model.pt's floats, its largest distance in
+    ulps, the worst |got - ref| / (TRAIN_ATOL + TRAIN_RTOL |ref|), the
+    tensors whose bits differ)."""
+    ref, got = torch.load(ref_path), torch.load(got_path)
+    worst = dict(abs=0.0, ulps=0, ratio=0.0, differ=0)
+    for k in ref:
+        if torch.equal(ref[k], got[k]):
+            continue
+        worst["differ"] += 1
+        if not ref[k].is_floating_point():
+            worst["ratio"] = float("inf")   # a count that differs
+            continue
+        d = (got[k].double() - ref[k].double()).abs()
+        worst["abs"] = max(worst["abs"], float(d.max()))
+        worst["ulps"] = max(worst["ulps"], ulp_distance(ref[k], got[k]))
+        worst["ratio"] = max(worst["ratio"], float(
+            (d / (TRAIN_ATOL + TRAIN_RTOL * ref[k].double().abs())).max()))
+    return worst
+
+
+def dispatch_path():
+    """The dispatch phase (DISPATCH_ARMS, DISPATCH_WAVES): every child of a
+    wave at once, the waves in turn; then dispatch_check on each arm.
+    Returns the arms' summaries."""
+    arms = {}
+    for name, cfg, batch_size, n_steps, k, precision, val, chkpt, stop \
+            in DISPATCH_ARMS:
+        tag = f"{cfg['dataset']}-{cfg['archi']}"
+        data_dir = WORK_DIR / f"data_{tag}"
+        data_dir.mkdir(parents=True, exist_ok=True)
+        if cfg["dataset"] == "kth" and not (data_dir / "packed_64").exists():
+            write_kth_packed_tree(data_dir, cfg["nx"], SEED + 4)
+        dirs = {kind: WORK_DIR / f"dispatch_{name.replace(' ', '_')}_{kind}"
+                for kind in ("k1", "k", "k_again", "stopped")}
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+        def argv(kind, d, n_steps=n_steps, cfg=cfg, batch_size=batch_size,
+                 precision=precision, k=k, val=val, chkpt=chkpt):
+            return (train_argv(str(d), str(data_dir), n_steps, cfg=cfg,
+                               batch_size=batch_size, precision=precision)
+                    + DISPATCH_FLAGS
+                    + ["--val_interval", str(val), "--chkpt_interval",
+                       str(chkpt), "--steps_per_dispatch",
+                       str(1 if kind == "k1" else k)])
+        argvs = {kind: argv(kind, d) for kind, d in dirs.items()}
+        argvs["resumed"] = argvs["stopped"] + ["--resume"]
+        dirs["resumed"] = dirs["stopped"]
+        arms[name] = dict(name=name, n_steps=n_steps, k=k, stop_after=stop,
+                          dirs=dirs, argvs=argvs, runs={},
+                          frames=cfg["seq_len"] * batch_size,
+                          opt=train_main.create_args().parse_args(
+                              argvs["k"]))
+    for wave in DISPATCH_WAVES:
+        children = [(arms[name], kind, TrainerChild(
+            arms[name]["argvs"][kind],
+            arms[name]["stop_after"] if kind == "stopped" else None))
+            for name, kind in wave]
+        for arm, kind, child in children:
+            arm["runs"][kind] = child.result()
+            if kind == "stopped":
+                arm["stopped_at"] = json.loads((arm["dirs"]["stopped"]
+                                                / "train_state.json")
+                                               .read_text())["step"]
+                arm["stopped_rows"] = training_rows(arm["dirs"]["stopped"])
+    return [dispatch_check(arm) for arm in arms.values()]
+
+
+def dispatch_check(arm):
+    """One arm of the dispatch phase: exit codes; every child launched
+    kernels 2-3 (and on vgg 4-7) exactly as its steps and validations need,
+    the window runs through their graph's per-replay counts; the K run's
+    model.pt and logged losses within TRAIN_RTOL / TRAIN_ATOL of the K = 1
+    run's (the CLI test's tolerance), the bit-level distance printed; K
+    and K again bit-equal; with a stop, the stopped run exits with 143 at a
+    window boundary and its --resume ends bit-equal to the K run (model.pt,
+    the periodic snapshots, the losses after the resume). Returns the
+    arm's summary."""
+    name, runs, opt, n = arm["name"], arm["runs"], arm["opt"], arm["n_steps"]
+    val = opt.val_interval
+    want = {kind: (0 if kind != "stopped" else 143) for kind in runs}
+    rcs = {kind: r[0] for kind, r in runs.items()}
+    if rcs != want:
+        for kind, r in runs.items():
+            print(f"{name} {kind}:\n" + "\n".join(r[1][-30:]), flush=True)
+        raise SystemExit(f"{name} dispatch: exit codes {rcs}")
+    spans = {kind: (0, n) for kind in runs}
+    if "stopped" in runs:
+        at = arm["stopped_at"]
+        if not arm["stop_after"] <= at < n or at % arm["k"] \
+                or arm["stopped_rows"][-1]["step"] != at:
+            raise SystemExit(f"{name} dispatch: stopped at step {at}")
+        if f"Resumed from step {at}" not in runs["resumed"][1]:
+            raise SystemExit(f"{name} dispatch: no resume from step {at}")
+        spans.update(stopped=(0, at), resumed=(at, n))
+    for kind, (a, b) in spans.items():
+        expect_launches(f"{name} dispatch, {kind} run",
+                        runs[kind][2]["launches"],
+                        train_launches(opt, b - a, b // val - a // val))
+
+    dirs = arm["dirs"]
+    rows = {kind: training_rows(dirs[kind])
+            for kind in ("k1", "k", "k_again") if kind in runs}
+    steps = {kind: [r["step"] for r in rs] for kind, rs in rows.items()}
+    if len({tuple(v) for v in steps.values()}) != 1:
+        raise SystemExit(f"{name} dispatch: logged steps {steps}")
+    losses = {kind: [r["loss"] for r in rs] for kind, rs in rows.items()}
+    loss_ratio = max(abs(a - b) / (TRAIN_ATOL + TRAIN_RTOL * abs(a))
+                     for a, b in zip(losses["k1"], losses["k"]))
+    vs_k1 = model_distance(dirs["k1"] / "model.pt", dirs["k"] / "model.pt")
+    again = None
+    if "k_again" in runs:
+        again = model_distance(dirs["k"] / "model.pt",
+                               dirs["k_again"] / "model.pt")
+        again["losses_equal"] = losses["k"] == losses["k_again"]
+    resumed = None
+    if "resumed" in runs:
+        resumed = dict(differ=0, losses_differ=[])
+        for f in ["model.pt"] + [f"model_{s}.pt" for s in range(
+                opt.chkpt_interval, n + 1, opt.chkpt_interval)]:
+            resumed["differ"] += model_distance(dirs["k"] / f,
+                                                dirs["stopped"] / f)["differ"]
+        resumed["losses_differ"] = [
+            (a["step"], a["loss"], b["loss"])
+            for a, b in zip(rows["k"], training_rows(dirs["stopped"]))
+            if a["step"] > arm["stopped_at"] and a["loss"] != b["loss"]]
+
+    def timing(kind):
+        # the last logged row: at dcgan a replay alone, at KTH it holds
+        # the window that captures
+        fps = rows[kind][-1]["fps"]
+        return dict(ms_per_step=1e3 * arm["frames"] / fps,
+                    frames_per_s=fps,
+                    peak_reserved_gb=runs[kind][2]["peak_reserved_gb"],
+                    peak_allocated_gb=runs[kind][2]["peak_allocated_gb"],
+                    ooms=runs[kind][2]["ooms"],
+                    alloc_retries=runs[kind][2]["alloc_retries"],
+                    seconds=runs[kind][3])
+    summary = dict(
+        arm=name, k=arm["k"], steps=n, exit_codes=rcs,
+        k1=timing("k1"), window=timing("k"),
+        launches={kind: {c: v for c, v in r[2]["launches"].items() if v}
+                  for kind, r in runs.items()},
+        model_pt_vs_k1=vs_k1, loss_vs_k1_ratio=loss_ratio,
+        losses=losses,
+        k_again_bit_equal=None if again is None
+        else again["differ"] == 0 and again["losses_equal"],
+        stopped_at=arm.get("stopped_at"), resumed=resumed)
+    print("dispatch_path " + json.dumps(summary), flush=True)
+    w, one = summary["window"], summary["k1"]
+    print(f"{name} K={arm['k']} against K=1, {n} steps: model.pt "
+          f"{vs_k1['ratio']:.3f} of the tolerance (max |diff| "
+          f"{vs_k1['abs']:.3e}, {vs_k1['ulps']} ulps, {vs_k1['differ']} "
+          f"tensors differ), losses {loss_ratio:.3f}"
+          + ("" if again is None else "; K again " + (
+              "bit-equal" if summary["k_again_bit_equal"] else "DIFFERS"))
+          + ("" if resumed is None else
+             f"; SIGTERM at step {arm['stopped_at']} and --resume "
+             + ("bit-equal" if not resumed["differ"]
+                and not resumed["losses_differ"] else "DIFFER"))
+          + f"; {w['ms_per_step']:.1f} against {one['ms_per_step']:.1f} ms "
+          f"a step, {w['frames_per_s']:.0f} against "
+          f"{one['frames_per_s']:.0f} frames/s, peak reserved "
+          f"{w['peak_reserved_gb']:.2f} against "
+          f"{one['peak_reserved_gb']:.2f} GB, allocations that failed "
+          f"{w['ooms']} against {one['ooms']}", flush=True)
+    if vs_k1["ratio"] > 1 or loss_ratio > 1:
+        raise SystemExit(f"{name} dispatch: K={arm['k']} is not within the "
+                         f"CLI tolerance of K=1 ({vs_k1}, losses "
+                         f"{loss_ratio:.3f})")
+    if summary["k_again_bit_equal"] is False:
+        raise SystemExit(f"{name} dispatch: two K={arm['k']} runs differ "
+                         f"({again}; {losses['k']} {losses['k_again']})")
+    if resumed is not None and (resumed["differ"]
+                                or resumed["losses_differ"]):
+        raise SystemExit(f"{name} dispatch: the resumed run differs from "
+                         f"the uninterrupted one ({resumed})")
+    return summary
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -1965,6 +2181,12 @@ def main():
     profile_path()
     print(f"run-control phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # dispatch windows: the trainer CLI at --steps_per_dispatch K (one
+    # CUDA graph of K steps) against K = 1
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dispatch_path()
+    print(f"dispatch phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = "srvp_tpu_torch/csrc/rollout_train.cu"
     kernels = [

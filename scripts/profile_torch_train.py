@@ -3,6 +3,7 @@
 
     python scripts/profile_torch_train.py [--config smmnist-dcgan|kth-vgg]
         [--precision float32|bfloat16] [--steps 5] [--seed 0]
+        [--steps_per_dispatch 1]
 
 Runs `srvp_tpu_torch.train_lib.train_step` at the full width of a published
 configuration with its seeded training init: `smmnist-dcgan`
@@ -13,13 +14,18 @@ synthetic packed KTH tree, o = 2; each from the trainer's own loader, with
 the training rollout and the vgg pools and upsamples through their CUDA
 kernels, the encoder and decoder in `--precision` (the trainer's flag):
 three warm-up steps, then `--steps` steps timed by the host clock (ending
-in a synchronise) and traced by torch.profiler. Prints one JSON line: the
-card's name and power limit, ms per step and frames/s, the peak device
-memory, device-busy ms per step (the sum of kernel times; one stream, so
-kernels do not overlap), the device's idle share, the share of the port's
-own kernels (rollout, spatial), the device time by kernel family
-(FAMILIES), the kernels grouped by name with their share of device time,
-and the ATen ops that launched the most device time. Needs CUDA.
+in a synchronise) and traced by torch.profiler. With `--steps_per_dispatch
+K` > 1 the steps go as the trainer's windows of K (train_lib.WindowStep:
+on the card one replay of a CUDA graph of K steps): two warm-up windows
+(the eager one and the one that captures), then `--steps` / K windows; the
+ATen ops of a replay are not traced, its kernels are. Prints one JSON
+line: the card's name and power limit, ms per step and frames/s, the peak
+device memory (allocated, and reserved), device-busy ms per step (the sum
+of kernel times; one stream, so kernels do not overlap), the device's idle
+share, the share of the port's own kernels (rollout, spatial), the device
+time by kernel family (FAMILIES), the kernels grouped by name with their
+share of device time, and the ATen ops that launched the most device
+time. Needs CUDA.
 """
 
 import argparse
@@ -36,7 +42,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from srvp_tpu_torch import train_lib, train_main  # noqa: E402
 from srvp_tpu_torch.config import model_config, strict_fp32  # noqa: E402
-from srvp_tpu_torch.data.device_compose import to_device  # noqa: E402
+from srvp_tpu_torch.data.device_compose import (  # noqa: E402
+    stack_batches, to_device)
 from srvp_tpu_torch.data.loader import infinite_batches  # noqa: E402
 
 import chip_smoke  # noqa: E402  (configurations, trainer flags, data)
@@ -122,7 +129,11 @@ def main():
                    default="float32")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--steps_per_dispatch", type=int, default=1)
     args = p.parse_args()
+    if args.steps % args.steps_per_dispatch:
+        sys.exit("profile_torch_train: --steps_per_dispatch must divide "
+                 "--steps")
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train: needs CUDA")
     strict_fp32()
@@ -143,23 +154,31 @@ def run(args, tmp):
     opt.seed = args.seed
     hp = train_main.train_hparams(opt)
     torch.manual_seed(opt.seed)
+    if args.steps_per_dispatch > 1:   # as the trainer runs windows
+        train_lib.expandable_segments()
     ts = train_lib.init_train_state(model_config(vars(opt)), hp, "cuda",
                                     res_gain=opt.res_gain)
-    gen = torch.Generator(device="cuda").manual_seed(opt.seed)
+    ts.generator = torch.Generator(device="cuda").manual_seed(opt.seed)
+    k = opt.steps_per_dispatch = args.steps_per_dispatch
     batches = infinite_batches(train_main.loaders(opt)[0])
+    window = train_lib.WindowStep(ts, hp, k) if k > 1 else None
 
     def step():
-        return train_lib.train_step(ts, to_device(next(batches), "cuda"), hp,
-                                    generator=gen)
+        """One dispatch: a step, or a window of k."""
+        if window is None:
+            return train_lib.train_step(ts, to_device(next(batches), "cuda"),
+                                        hp, generator=ts.generator)
+        return window(to_device(stack_batches(
+            [next(batches) for _ in range(k)]), "cuda"))
 
-    for _ in range(3):
+    for _ in range(3 if window is None else 2):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(args.steps // k):
             metrics = step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
@@ -168,12 +187,15 @@ def run(args, tmp):
     frames = opt.seq_len * opt.batch_size
     print(json.dumps({
         "config": args.config, "precision": args.precision,
-        "device": torch.cuda.get_device_name(0),
+        "steps_per_dispatch": k, "device": torch.cuda.get_device_name(0),
         "nvidia_smi": chip_smoke.nvidia_smi_line(),
         "steps": args.steps, "batch": opt.batch_size, "seq_len": opt.seq_len,
         "oversampling": opt.n_euler_steps, "loss": float(metrics["loss"]),
         "wall_ms_per_step": wall_ms, "frames_per_s": frames / wall_ms * 1e3,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        # a graph's pool, taken at its capture (a warm-up window), shows
+        # here and not in the allocated peak
+        "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "own_kernel_shares": own, "families": fams, "kernels": top,

@@ -75,10 +75,13 @@ def create_args():
                    help="Not ported (several hosts).")
     g.add_argument("--process_id", type=int, metavar="RANK", default=None,
                    help="Not ported (several hosts).")
-    g.add_argument("--steps_per_dispatch", type=int, metavar="K", default=1,
-                   help="Only 1 is ported.")
 
     r = p.add_argument_group("Run control")
+    r.add_argument("--steps_per_dispatch", type=int, metavar="K", default=1,
+                   help="Run K optimization steps per dispatch (on the "
+                        "card one replay of a CUDA graph of K steps over "
+                        "K stacked batches): the steps of K = 1, bit for "
+                        "bit. Must divide the log/val/chkpt intervals.")
     r.add_argument("--n_workers", type=int, metavar="NB", default=4,
                    help="Loader threads (the batches do not depend on "
                         "them).")
@@ -199,7 +202,6 @@ def create_args():
 def check_ported(opt):
     """Raises NotImplementedError for a flag whose part is not ported."""
     todo = {
-        "--steps_per_dispatch > 1": opt.steps_per_dispatch != 1,
         "--n_devices > 1": opt.n_devices not in (None, 1),
         "--local_rank": opt.local_rank != 0,
         "--n_dcn": opt.n_dcn != 1,

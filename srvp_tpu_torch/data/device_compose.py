@@ -50,6 +50,22 @@ def parts_collate(items):
             "pos": np.stack([it[1] for it in items]).astype(np.int32)}
 
 
+def stack_batches(batches):
+    """Host batches (parts dicts or uint8 arrays) stacked on a new leading
+    axis, parts dicts leaf-wise: a window of len(batches) steps
+    (srvp_tpu/parallel shard_stacked_batches)."""
+    if is_parts_batch(batches[0]):
+        return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    return np.stack(batches)
+
+
+def window_batch(window, j):
+    """Step j's batch of a stacked window."""
+    if is_parts_batch(window):
+        return {k: v[j] for k, v in window.items()}
+    return window[j]
+
+
 def to_device(batch, device):
     """A host batch (parts dict or uint8 array) as tensors on `device`. To a
     CUDA device each array is copied into pinned memory of its own and sent

@@ -6,9 +6,9 @@ epoch gets its own RandomState(item_seed(i)), so a batch depends only on
 (seed, epoch, position): the same batches as the JAX loader for the same
 seed, whatever the worker count, and `fast_forward` skips batches without
 making them. A producer thread builds the batches ahead of the consumer
-(PREFETCH of them), each from the dataset's native batch hook where it
-has one (`get_batch_seeded`: Moving MNIST's generator, data/native.py) or
-from `num_workers` threads calling `get_item`. An exception in the producer
+(`prefetch` of them, PREFETCH by default), each from the dataset's native
+batch hook where it has one (`get_batch_seeded`: Moving MNIST's generator,
+data/native.py) or from `num_workers` threads calling `get_item`. An exception in the producer
 is raised in the consumer, and closing an iteration ends its producer.
 """
 
@@ -45,8 +45,9 @@ class DataLoader:
     drop_last=True), one epoch per iteration."""
 
     def __init__(self, dataset, batch_size, seed=0,
-                 collate_fn=collate_uint8, num_workers=4):
+                 collate_fn=collate_uint8, num_workers=4, prefetch=PREFETCH):
         self.dataset = dataset
+        self.prefetch = prefetch
         self.batch_size = batch_size
         self.seed = seed
         self.collate_fn = collate_fn
@@ -83,7 +84,7 @@ class DataLoader:
         self.epoch += 1
         start, self._start_batch = self._start_batch, 0
         order = epoch_order(len(self.dataset), self.seed, epoch)
-        out_q = queue.Queue(maxsize=PREFETCH)
+        out_q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def producer():

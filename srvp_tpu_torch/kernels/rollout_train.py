@@ -46,7 +46,8 @@ fwd_launches = 0
 bwd_launches = 0
 # Set to a list to time the backward's parts: each backward then appends a
 # dict of CUDA events recorded on its stream, "start", "carry" and "wgrad"
-# (each a (before, after) pair around the launch) and "end".
+# (each a (before, after) pair around the launch) and "end"; a backward
+# that a CUDA graph captures appends none.
 bwd_events = None
 # Set to a list to keep the weight-gradient pass's inputs: each backward
 # then appends the arguments of its `weight_gradients` call, (shapes, n_pz,
@@ -219,7 +220,9 @@ class TrainRollout(torch.autograd.Function):
         ny, nz = y0.shape[1], eps.shape[2]
         device = y0.device
         stream = torch.cuda.current_stream(device)
-        events = {} if bwd_events is not None else None
+        # a graph capture records no timing events
+        events = ({} if bwd_events is not None
+                  and not torch.cuda.is_current_stream_capturing() else None)
 
         def mark(name):
             if events is not None:

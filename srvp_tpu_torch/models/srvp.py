@@ -76,6 +76,20 @@ def rollout_masks(nt, oversampling, nt_hx):
     return t_data, new_step, use_post, keep_integer
 
 
+_INDICES = {}
+
+
+def _take(t, idx):
+    """t[idx] for a numpy index array, the index kept on t's device after
+    its first use: a host index would be copied to the card on every call,
+    which a CUDA graph cannot capture (train_lib.WindowStep)."""
+    key = (idx.tobytes(), t.device)
+    if key not in _INDICES:
+        _INDICES[key] = torch.as_tensor(idx, dtype=torch.long,
+                                        device=t.device)
+    return t[_INDICES[key]]
+
+
 def _noise(eps, shape, like, generator):
     if eps is not None:
         return eps
@@ -235,13 +249,14 @@ class SRVP(nn.Module):
         if use_kernel and np.all(use_post):
             ys, res, q_pars, p_pars, zs = train_rollout(
                 (self.q_z.weight, self.q_z.bias), self.p_z.linears(),
-                self.dynamics.linears(), y_0, hx_z[t_data], eps_pos,
+                self.dynamics.linears(), y_0, _take(hx_z, t_data), eps_pos,
                 oversampling)
-            keep = (np.flatnonzero(keep_integer) if remove_intermediate
-                    else slice(None))
+            if remove_intermediate:
+                ys = _take(ys, np.flatnonzero(keep_integer))
             new = np.flatnonzero(new_step)
-            return GenerateOutput(torch.cat([y_0[None], ys[keep]]), zs[new],
-                                  q_pars[new], p_pars[new], res)
+            return GenerateOutput(torch.cat([y_0[None], ys]), _take(zs, new),
+                                  _take(q_pars, new), _take(p_pars, new),
+                                  res)
 
         y, z = y_0, None
         ys, res, zs, p_pars, q_pars = [], [], [], [], []
@@ -262,7 +277,8 @@ class SRVP(nn.Module):
             res.append(r)
         ys = torch.stack(ys)
         if remove_intermediate:
-            y_out = torch.cat([y_0[None], ys[np.flatnonzero(keep_integer)]])
+            y_out = torch.cat([y_0[None],
+                               _take(ys, np.flatnonzero(keep_integer))])
         else:
             y_out = torch.cat([y_0[None], ys])
         stack = lambda lst: torch.stack(lst) if lst else None  # noqa: E731
@@ -288,5 +304,5 @@ class SRVP(nn.Module):
         res = ys - y_all[:-1]
         if remove_intermediate:
             keep = rollout_masks(nt, oversampling, 0)[3]
-            y_all = torch.cat([y_0[None], ys[np.flatnonzero(keep)]])
+            y_all = torch.cat([y_0[None], _take(ys, np.flatnonzero(keep))])
         return GenerateOutput(y_all, None, None, None, res)

@@ -20,7 +20,17 @@ saves XP/model_<step>.pt and the full train state (XP/train_state.pt and
 .json: model, Adam, schedule, step, generator) every `--chkpt_interval`
 steps from a background thread (keeping the `--keep_chkpt` newest
 snapshots), and XP/model.pt and the train state at the end, beside
-XP/config.json. `--resume` continues from XP's train state: the same steps,
+XP/config.json. `--steps_per_dispatch K` runs K steps a dispatch: on the
+K-grid, with a whole window before `--n_iter`, K batches go to the card
+in one copy and train as one window (train_lib.WindowStep: on the card
+one replay of a CUDA graph of K steps, captured after the first window;
+the steps of K = 1, bit for bit); other steps run singly (after an
+unaligned resume, and the ragged tail). The graph is freed before a
+validation or a single step and captured again at the next window, so
+that its memory and eager work's never add up; such a run's CUDA
+allocator uses expandable segments (train_lib.expandable_segments). K
+must divide the log, validation and checkpoint intervals, whose actions
+run between windows; `--profile_dir` forces K = 1. `--resume` continues from XP's train state: the same steps,
 losses and weights as a run never stopped, given the same `--seed` (the
 data stream is seeded by it) and, on the card, cuDNN's deterministic
 algorithms (`torch.backends.cudnn.deterministic`). SIGTERM stops the run at the next step
@@ -30,8 +40,8 @@ writes a torch.profiler trace of steps 10-15 to DIR. `--config FILE`
 `--torch_amp`, `--apex_amp`) runs the encoder and decoder in bfloat16, the
 latent model and the loss in float32. The `.pt` model files are float32
 state_dicts in the reference key names: `test_main --model_name model.pt`
-evaluates them. Not ported yet (ROADMAP.md): dispatch windows, several
-GPUs, Human3.6M and BAIR, KTH's PNG tree.
+evaluates them. Not ported yet (ROADMAP.md): several GPUs, Human3.6M and
+BAIR, KTH's PNG tree.
 """
 
 import os
@@ -46,8 +56,10 @@ from srvp_tpu_torch import train_lib
 from srvp_tpu_torch.args import check_ported, compute_dtype, create_args
 from srvp_tpu_torch.config import model_config, resolve_device, strict_fp32
 from srvp_tpu_torch.data.base import collate_uint8, load_dataset
-from srvp_tpu_torch.data.device_compose import parts_collate, to_device
-from srvp_tpu_torch.data.loader import DataLoader, PartsView, infinite_batches
+from srvp_tpu_torch.data.device_compose import (parts_collate, stack_batches,
+                                                to_device)
+from srvp_tpu_torch.data.loader import (PREFETCH, DataLoader, PartsView,
+                                         infinite_batches)
 from srvp_tpu_torch.utils import checkpoint as ckpt
 from srvp_tpu_torch.utils.runtime import MetricsLogger
 
@@ -70,33 +82,68 @@ def loaders(opt):
     """(train, val) loaders of the dataset's folds, validation at
     seq_len_test, each `opt.n_workers` threads wide. Moving MNIST training
     batches are digits and trajectories (composited on the device) unless
-    `opt.no_device_compose`; the others are whole uint8 frames."""
+    `opt.no_device_compose`; the others are whole uint8 frames. The
+    training loader makes two dispatches' batches ahead (at least
+    PREFETCH), so that a window of --steps_per_dispatch batches is ready
+    when the trainer takes it."""
     dataset = load_dataset(opt)
     trainset, valset = dataset.get_fold("train"), dataset.get_fold("val")
     if opt.seq_len_test is not None:
         valset.change_seq_len(opt.seq_len_test)
+    prefetch = max(PREFETCH, 2 * (opt.steps_per_dispatch or 1))
     if opt.dataset == "smmnist" and not opt.no_device_compose:
         train = DataLoader(PartsView(trainset), opt.batch_size, seed=opt.seed,
                            collate_fn=parts_collate,
-                           num_workers=opt.n_workers)
+                           num_workers=opt.n_workers, prefetch=prefetch)
     else:
         train = DataLoader(trainset, opt.batch_size, seed=opt.seed,
                            collate_fn=collate_uint8,
-                           num_workers=opt.n_workers)
+                           num_workers=opt.n_workers, prefetch=prefetch)
     val = DataLoader(valset, opt.batch_size_test, seed=opt.seed + 1,
                      collate_fn=collate_uint8, num_workers=opt.n_workers)
     return train, val
 
 
-def device_batches(loader, device):
-    """The loader's batches, cycled, on `device`: batch k+1's copy is queued
-    before batch k is handed out, so the host never waits for a transfer
-    (srvp_tpu/train_main.py:199)."""
+def device_batches(loader, device, spd=1, start=0, n_iter=None):
+    """(width, batch) pairs of the loader's batches, cycled, on `device`,
+    for a run at step `start` (srvp_tpu/train_main.py:199): with spd > 1,
+    at a step on the spd-grid with a whole window before n_iter, spd
+    batches stacked (stack_batches) and sent in one copy, width spd;
+    otherwise one batch, width 1. The next item's copy is queued before
+    this one is handed out, so the host never waits for a transfer."""
     it = infinite_batches(loader)
-    nxt = to_device(next(it), device)
+
+    def fetch(i):
+        if spd > 1 and i % spd == 0 and i + spd <= n_iter:
+            return spd, to_device(stack_batches(
+                [next(it) for _ in range(spd)]), device)
+        return 1, to_device(next(it), device)
+
+    i = start
+    nxt = fetch(i)
     while True:
-        cur, nxt = nxt, to_device(next(it), device)
+        cur = nxt
+        i += cur[0]
+        nxt = fetch(i)
         yield cur
+
+
+def dispatch_width(opt):
+    """The steps a window (--steps_per_dispatch), checked as the JAX
+    trainer checks it (srvp_tpu/train_main.py:169-180)."""
+    spd = opt.steps_per_dispatch or 1
+    if spd > 1 and opt.profile_dir:
+        print("steps_per_dispatch forced to 1: --profile_dir traces "
+              "individual steps", flush=True)
+        spd = 1
+    if spd > 1:
+        for nm in ("log_interval", "val_interval", "chkpt_interval"):
+            iv = getattr(opt, nm)
+            if iv and iv % spd:
+                raise ValueError(
+                    f"--steps_per_dispatch {spd} must divide --{nm} {iv} "
+                    f"(boundary actions fire between dispatch windows)")
+    return spd
 
 
 def start_profile(device):
@@ -125,6 +172,7 @@ def main(opt):
     """Trains; returns the exit status: 0, or 143 when SIGTERM stopped the
     run (after saving its train state), or 130 after a KeyboardInterrupt."""
     check_ported(opt)
+    spd = dispatch_width(opt)
     device = resolve_device(opt.device)
     if opt.seed is None:
         opt.seed = random.randint(1, 10000)
@@ -141,6 +189,8 @@ def main(opt):
     opt.n_iter = opt.n_iter or (opt.lr_scheduling_burnin
                                 + opt.lr_scheduling_n_iter)
     torch.manual_seed(opt.seed)
+    if spd > 1 and device.type == "cuda":
+        train_lib.expandable_segments()
     ts = train_lib.init_train_state(cfg, hp, device, res_gain=opt.res_gain)
     ts.generator = torch.Generator(device=device).manual_seed(opt.seed)
     resumed_step = best_val_metric = None
@@ -174,15 +224,24 @@ def main(opt):
     prev_handler = signal.signal(
         signal.SIGTERM, lambda *_: stop_requested.append(True))
     writer = ckpt.AsyncCheckpointer()
+    # the writer's copy stream must be idle while a graph is captured
+    window = (train_lib.WindowStep(ts, hp, spd, before_capture=writer.wait)
+              if spd > 1 else None)
     try:
-        for batch in device_batches(train_loader, device):
+        for width, batch in device_batches(train_loader, device, spd, itr,
+                                           opt.n_iter):
             if itr >= opt.n_iter or stop_requested:
                 break
-            itr += 1
+            itr += width
             if opt.profile_dir and itr == PROFILE_STEPS[0]:
                 prof = start_profile(device)
-            metrics = train_lib.train_step(ts, batch, hp,
-                                           generator=ts.generator)
+            if width > 1:
+                metrics = window(batch)
+            else:
+                if window is not None:
+                    window.release()   # the ragged tail
+                metrics = train_lib.train_step(ts, batch, hp,
+                                               generator=ts.generator)
             if prof is not None and itr == PROFILE_STEPS[1]:
                 stop_profile(prof, opt.profile_dir)
                 prof = None
@@ -200,6 +259,8 @@ def main(opt):
                 mlog.log(itr, fps=fps, **m)
 
             if itr % opt.val_interval == 0:
+                if window is not None:
+                    window.release()
                 val_gen = torch.Generator(device=device).manual_seed(
                     opt.seed + 123 + itr)
                 val_metric = train_lib.evaluate(

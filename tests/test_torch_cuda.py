@@ -10,8 +10,9 @@ the vgg pool and upsample, forward and backward, bit for bit (ties, a NaN, a
 non-contiguous input, a tensor past 2^31 elements), and the conv stage,
 kernels 8 and 9 (sizes that are no tile multiple, every row on an edge,
 one input channel, n_valid < N, bf16, the same bits on every run, an input
-past 2^31 elements); and the smoke's one-step check on the KTH model, which
-must fail on a planted fault in the upsample backward.
+past 2^31 elements); the smoke's one-step check on the KTH model, which
+must fail on a planted fault in the upsample backward; and dispatch windows,
+a CUDA graph of training steps against the same steps run singly.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
 Run them on the card with:
@@ -22,15 +23,17 @@ Run them on the card with:
 import functools
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from srvp_tpu_torch import train_main
-from srvp_tpu_torch.config import strict_fp32
-from srvp_tpu_torch.data.device_compose import to_device
+from srvp_tpu_torch import train_lib, train_main
+from srvp_tpu_torch.config import SRVPConfig, strict_fp32
+from srvp_tpu_torch.data.device_compose import stack_batches, to_device
 from srvp_tpu_torch.kernels import build as kbuild
 from srvp_tpu_torch.kernels import conv_stage as kcs
+from srvp_tpu_torch.kernels import launches
 from srvp_tpu_torch.kernels import parity
 from srvp_tpu_torch.kernels import rollout as krollout
 from srvp_tpu_torch.kernels import rollout_train as krt
@@ -656,3 +659,117 @@ def test_kth_step_check_fails_on_a_planted_fault(cuda, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="disagrees") as fault:
         check()
     print("planted", fault.value)
+
+
+def _window_run(cfg, hp, batches, k, seed):
+    """A train state from `seed` trained on `batches`: as windows of k
+    steps (k > 1: the first eager, then one CUDA graph replayed) or as
+    single steps (k = 1). Returns the state, the last step's metrics and
+    the launches counted."""
+    torch.manual_seed(seed)
+    ts = train_lib.init_train_state(cfg, hp, "cuda")
+    ts.generator = torch.Generator(device="cuda").manual_seed(seed)
+    launches.reset()
+    if k == 1:
+        for b in batches:
+            m = train_lib.train_step(ts, to_device(b, "cuda"), hp,
+                                     generator=ts.generator)
+    else:
+        window = train_lib.WindowStep(ts, hp, k)
+        for j in range(0, len(batches), k):
+            m = window(to_device(stack_batches(batches[j:j + k]), "cuda"))
+        assert window.graph is not None
+    torch.cuda.synchronize()
+    return ts, m, launches.counts()
+
+
+@pytest.mark.parametrize("archi,dtype", [("dcgan", torch.float32),
+                                         ("vgg", torch.bfloat16)])
+def test_window_graph_matches_single_steps(cuda, archi, dtype, monkeypatch):
+    """Three windows of two steps (the first eager, then one CUDA graph
+    captured and replayed twice) against six single steps from the same
+    state and generator, at small widths: parameters, batch-norm
+    statistics, Adam's state and the last loss bit for bit, the generator
+    advanced alike (the graph draws from it: registered, not frozen), and
+    the kernels' launches counted per replay exactly as six steps launch
+    them (kernels 2-3; on vgg 4-7 in the compute dtype). cuDNN runs its
+    deterministic algorithms, as the trainer's resume needs."""
+    cfg = SRVPConfig(archi=archi, skipco=archi == "vgg", nf=4, nhx=8, ny=4,
+                     nz=4, nt_inf=2, nh_inf=8, nlayers_inf=2, nh_res=16,
+                     nlayers_res=2)
+    hp = train_lib.TrainHParams(nt_cond=3, lr=1e-3, lr_burnin=3,
+                                lr_decay_iter=6, compute_dtype=dtype,
+                                oversampling=2 if archi == "vgg" else 1)
+    batches = [np.random.RandomState(j).randint(
+        0, 256, (6, 3, 64, 64, 1)).astype(np.uint8) for j in range(6)]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    ref, m_ref, n_ref = _window_run(cfg, hp, batches, 1, 7)
+    got, m_got, n_got = _window_run(cfg, hp, batches, 2, 7)
+    assert got.step == ref.step == 6 and m_got["lr"] == m_ref["lr"]
+    assert torch.equal(got.generator.get_state(), ref.generator.get_state())
+    assert torch.equal(m_got["loss"], m_ref["loss"])
+    sd_ref = {**ref.model.state_dict(),
+              **_adam_tensors(ref.optimizer.state_dict())}
+    sd_got = {**got.model.state_dict(),
+              **_adam_tensors(got.optimizer.state_dict())}
+    differ = {n: float((sd_got[n].double() - sd_ref[n].double()).abs().max())
+              for n in sd_ref if not torch.equal(sd_got[n], sd_ref[n])}
+    print(f"{archi} {dtype}: {len(differ)} of {len(sd_ref)} tensors differ, "
+          f"max |diff| {max(differ.values(), default=0.0):.3e}")
+    assert not differ
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    vgg = 4 if archi == "vgg" else 0
+    expected = {"train_rollout_fwd": 6, "train_rollout_bwd": 12,
+                **{f"{k}{sfx}": 6 * vgg for k in (
+                    "maxpool_fwd", "maxpool_bwd", "upsample_fwd",
+                    "upsample_bwd")}}
+    for counts in (n_ref, n_got):
+        assert {k: v for k, v in counts.items() if v} == \
+            {k: v for k, v in expected.items() if v}
+
+
+def _adam_tensors(sd):
+    return {f"adam/{i}/{k}": v for i, st in sd["state"].items()
+            for k, v in st.items()}
+
+
+def test_graph_safe_adam_is_adam_bit_for_bit(cuda):
+    """train_lib.graph_safe_adam, Adam's step with its host scalars read
+    from the device (what a window's graph captures), against
+    torch.optim.Adam's own step on the card: the same bits over steps of
+    changing learning rate and gradients of every scale, from a fresh
+    state; torch's capturable Adam, the control, lands elsewhere."""
+    shapes = [(64, 1, 4, 4), (64,), (128, 64, 4, 4), (512, 512), (40, 256),
+              (7,)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    init = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
+    runs = {k: [p.clone().requires_grad_() for p in init]
+            for k in ("adam", "safe", "capturable")}
+    opts = {"adam": torch.optim.Adam(runs["adam"]),
+            "safe": torch.optim.Adam(runs["safe"]),
+            "capturable": torch.optim.Adam(runs["capturable"],
+                                           capturable=True)}
+    for step, lr in enumerate([3e-4, 3e-4, 2.9e-4, 1.7e-4, 1e-3]):
+        grads = [torch.randn(s, device="cuda", generator=gen)
+                 * 10.0 ** (step % 4 * -3) for s in shapes]
+        for kind, opt in opts.items():
+            for p, g in zip(runs[kind], grads):
+                p.grad = g.clone()
+            if kind == "safe":
+                scalars = train_lib.adam_scalars(opt, [lr])
+                train_lib.graph_safe_adam(
+                    opt, torch.tensor(scalars[0], device="cuda"))
+                for st in opt.state.values():
+                    st["step"] += 1
+            else:
+                opt.param_groups[0]["lr"] = lr
+                opt.step()
+    differ = {kind: sum(int((p != q).sum()) for p, q in zip(
+        runs[kind], runs["adam"])) for kind in ("safe", "capturable")}
+    print(f"elements that differ from Adam's step: {differ} of "
+          f"{sum(p.numel() for p in init)}")
+    assert differ["safe"] == 0 and differ["capturable"] > 0
+    for a, b in zip(opts["adam"].state.values(), opts["safe"].state.values()):
+        assert all(torch.equal(a[k], b[k])
+                   for k in ("step", "exp_avg", "exp_avg_sq"))

@@ -124,8 +124,7 @@ def test_mixed_precision_flags_train(tmp_path, flags, dtype, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--steps_per_dispatch", "2"], ["--n_devices", "2"],
-    ["--dataset", "human"], ["--dataset", "bair"]])
+    ["--n_devices", "2"], ["--dataset", "human"], ["--dataset", "bair"]])
 def test_flags_of_unported_parts_raise(tmp_path, flags):
     opt = parse(tmp_path, "--device", "cpu", *flags)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
