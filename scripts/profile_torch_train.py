@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Where the time of the port's training step goes, on one GPU.
 
-    python scripts/profile_torch_train.py [--config smmnist-dcgan|kth-vgg]
+    python scripts/profile_torch_train.py
+        [--config smmnist-dcgan|kth-vgg|bair-vgg|human-vgg]
         [--precision float32|bfloat16] [--steps 5] [--seed 0]
         [--steps_per_dispatch 1]
 
@@ -10,7 +11,11 @@ configuration with its seeded training init: `smmnist-dcgan`
 (chip_smoke.XP_CONFIG) on batches of 128 synthetic Moving MNIST videos of
 15 frames (digits composited on the device), or `kth-vgg`
 (chip_smoke.KTH_CONFIG) on batches of 100 windows of 20 frames from a
-synthetic packed KTH tree, o = 2; each from the trainer's own loader, with
+synthetic packed KTH tree, o = 2, `bair-vgg` (chip_smoke.BAIR_CONFIG, 3
+channels) on batches of 192 windows of 12 frames from a synthetic packed
+BAIR tree (no PNG decoding), or `human-vgg` (chip_smoke.HUMAN_CONFIG) on
+batches of 100 windows of 16 frames a frame in 8 of synthetic Human3.6M
+videos; each from the trainer's own loader, with
 the training rollout and the vgg pools and upsamples through their CUDA
 kernels, the encoder and decoder in `--precision` (the trainer's flag):
 three warm-up steps, then `--steps` steps timed by the host clock (ending
@@ -123,7 +128,8 @@ def kernel_table(prof, n, unit):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", choices=["smmnist-dcgan", "kth-vgg"],
+    p.add_argument("--config", choices=["smmnist-dcgan", "kth-vgg",
+                                        "bair-vgg", "human-vgg"],
                    default="smmnist-dcgan")
     p.add_argument("--precision", choices=["float32", "bfloat16"],
                    default="float32")
@@ -142,11 +148,25 @@ def main():
 
 
 def run(args, tmp):
+    data_dir = os.path.join(tmp, "data")
     if args.config == "kth-vgg":
-        chip_smoke.write_kth_packed_tree(tmp, 64, args.seed)
-        opt = chip_smoke.train_args(tmp, tmp, args.steps,
-                                    cfg=chip_smoke.KTH_CONFIG,
-                                    batch_size=chip_smoke.KTH_TRAIN_BATCH,
+        chip_smoke.write_kth_packed_tree(data_dir, 64, args.seed)
+        cfg, batch = chip_smoke.KTH_CONFIG, chip_smoke.KTH_TRAIN_BATCH
+    elif args.config == "bair-vgg":
+        chip_smoke.write_bair_trees(os.path.join(tmp, "png"), data_dir,
+                                    chip_smoke.BAIR_TRAIN_VIDEOS, 1,
+                                    args.seed)
+        cfg, batch = chip_smoke.BAIR_CONFIG, chip_smoke.BAIR_TRAIN_BATCH
+    elif args.config == "human-vgg":
+        chip_smoke.write_human_tree(
+            data_dir, chip_smoke.HUMAN_TRAIN_VIDEOS,
+            chip_smoke.HUMAN_TRAIN_LEN, chip_smoke.HUMAN_VAL_LEN, 1,
+            chip_smoke.HUMAN_NT_GEN, chip_smoke.HUMAN_CONFIG["subsampling"],
+            args.seed)
+        cfg, batch = chip_smoke.HUMAN_CONFIG, chip_smoke.HUMAN_TRAIN_BATCH
+    if args.config != "smmnist-dcgan":
+        opt = chip_smoke.train_args(tmp, data_dir, args.steps, cfg=cfg,
+                                    batch_size=batch,
                                     precision=args.precision)
     else:
         opt = chip_smoke.train_args(tmp, tmp, args.steps,

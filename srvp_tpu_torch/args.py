@@ -147,7 +147,7 @@ def create_args():
     d = p.add_argument_group("Dataset")
     d.add_argument("--dataset", type=str, metavar="DATASET", required=True,
                    choices=DATASETS,
-                   help="Dataset name (smmnist and kth are ported).")
+                   help="Dataset name.")
     d.add_argument("--data_dir", type=str, metavar="DIR", required=True,
                    help="Data directory.")
     d.add_argument("--seq_len", type=int, metavar="LEN", required=True,
@@ -159,7 +159,7 @@ def create_args():
     d.add_argument("--deterministic", action="store_true",
                    help="Moving MNIST: deterministic bounces.")
     d.add_argument("--subsampling", type=int, default=8,
-                   help="Human3.6M only (not ported): video sampling rate.")
+                   help="Human3.6M only: video sampling rate.")
     d.add_argument("--nx", type=int, metavar="SIZE", default=64,
                    help="Frame size (width and height).")
     d.add_argument("--nc", type=int, metavar="CHANNELS", required=True,
@@ -208,8 +208,6 @@ def check_ported(opt):
         "--coordinator_address": opt.coordinator_address is not None,
         "--num_processes": opt.num_processes is not None,
         "--process_id": opt.process_id is not None,
-        "--subsampling": opt.subsampling != 8,
-        f"--dataset {opt.dataset}": opt.dataset not in ("smmnist", "kth"),
     }
     for flag, asked in todo.items():
         if asked:

@@ -5,16 +5,19 @@ Datasets expose `get_item(index, rng)` with an explicit numpy RandomState, so
 item randomness is an argument and a seeded loader is reproducible. The
 train/val split is the JAX package's: a seed-42 shuffle of the item indices,
 95% train, each fold keeping the original item order. `load_dataset` picks
-the training dataset by name.
+the dataset by name.
 """
 
 import numpy as np
 
 
-def load_dataset(opt):
-    """The training dataset named by opt.dataset (trainer flags); its folds
-    come from get_fold."""
-    if opt.dataset == "smmnist":
+def load_dataset(opt, train=True):
+    """The dataset named by opt.dataset (the trainer's flags, or an
+    experiment's config.json as a namespace): its training videos, whose
+    folds come from get_fold, or with `train` off its test fold, at
+    opt.seq_len frames (srvp_tpu/data/base.py:54-76). Moving MNIST's test
+    fold is data/mmnist_test.py."""
+    if opt.dataset == "smmnist" and train:
         from srvp_tpu_torch.data.mmnist import MovingMNIST
         return MovingMNIST.make_dataset(
             opt.data_dir, opt.nx, opt.seq_len, opt.max_speed,
@@ -22,9 +25,16 @@ def load_dataset(opt):
             allow_synthetic=opt.allow_synthetic)
     if opt.dataset == "kth":
         from srvp_tpu_torch.data.kth import KTH
-        return KTH.make_dataset(opt.data_dir, opt.nx, opt.seq_len, True)
-    raise NotImplementedError(f"dataset {opt.dataset!r} is not ported yet "
-                              "(ROADMAP.md, Queue 1)")
+        return KTH.make_dataset(opt.data_dir, opt.nx, opt.seq_len, train)
+    if opt.dataset == "human":
+        from srvp_tpu_torch.data.human import Human
+        return Human.make_dataset(opt.data_dir, opt.nx, opt.seq_len,
+                                  opt.subsampling, train)
+    if opt.dataset == "bair":
+        from srvp_tpu_torch.data.bair import BAIR
+        return BAIR.make_dataset(opt.data_dir, opt.seq_len, train)
+    raise ValueError(f"no {'training' if train else 'test'} dataset named "
+                     f"{opt.dataset!r}")
 
 
 def collate_uint8(videos):

@@ -6,10 +6,15 @@ epoch gets its own RandomState(item_seed(i)), so a batch depends only on
 (seed, epoch, position): the same batches as the JAX loader for the same
 seed, whatever the worker count, and `fast_forward` skips batches without
 making them. A producer thread builds the batches ahead of the consumer
-(`prefetch` of them, PREFETCH by default), each from the dataset's native
-batch hook where it has one (`get_batch_seeded`: Moving MNIST's generator,
-data/native.py) or from `num_workers` threads calling `get_item`. An exception in the producer
-is raised in the consumer, and closing an iteration ends its producer.
+(`prefetch` of them, PREFETCH by default), each from the dataset's batch
+hooks where it has them, or from `num_workers` threads calling `get_item`:
+`get_batch_timemajor_u8` gives the collated uint8 batch itself (KTH's and
+BAIR's frames decoded straight into it, srvp_tpu/data/loader.py:113-118)
+where the collation is collate_uint8, and `get_batch_seeded` the items of
+a batch in one call (Moving MNIST's generator, the PNG decoder; data/
+native.py), each hook `num_workers` threads wide. An exception in the
+producer is raised in the consumer, and closing an iteration ends its
+producer.
 """
 
 import queue
@@ -69,10 +74,14 @@ class DataLoader:
     def _batch(self, order, epoch, b, pool):
         lo, hi = b * self.batch_size, (b + 1) * self.batch_size
         seeds = [item_seed(self.seed, epoch, pos) for pos in range(lo, hi)]
+        indices = [int(order[pos]) for pos in range(lo, hi)]
+        if self.collate_fn is collate_uint8:
+            timemajor = getattr(self.dataset, "get_batch_timemajor_u8", None)
+            if timemajor is not None:
+                return timemajor(indices, seeds, self.num_workers)
         native = getattr(self.dataset, "get_batch_seeded", None)
         if native is not None:
-            out = native([int(order[pos]) for pos in range(lo, hi)], seeds,
-                         self.num_workers)
+            out = native(indices, seeds, self.num_workers)
             return out if isinstance(out, dict) else self.collate_fn(list(out))
         return self.collate_fn(list(pool.map(
             lambda k: self.dataset.get_item(
@@ -127,6 +136,17 @@ def batches_in_order(videos, batch_size):
     for lo in range(0, len(videos), batch_size):
         yield collate_uint8(videos[lo:lo + batch_size]).astype(
             np.float32) / 255.0
+
+
+def dataset_batches(dataset, batch_size):
+    """batches_in_order of a test fold's items (`get_item(i)`, i = 0, 1,
+    ...), each batch's items read when it is taken: the JAX evaluation's
+    unshuffled loader (test.py:90-95)."""
+    n = len(dataset)
+    for lo in range(0, n, batch_size):
+        yield from batches_in_order(
+            [dataset.get_item(i) for i in range(lo, min(lo + batch_size, n))],
+            batch_size)
 
 
 def infinite_batches(loader):

@@ -27,16 +27,22 @@ def rollout_loss(outs):
             + (pp * 0.1).sum() + (zs * 0.05).sum())
 
 
-def agreement(out, ref, ref64, rtol, atol):
+def agreement(out, ref, ref64, rtol, atol, others=()):
     """Elementwise agreement of `out` with the fp32 plain result `ref`, as
     (worst raw error over tolerance, worst arbitrated error over tolerance,
     elements excused). An element also agrees if it is no farther from the
     float64 plain result `ref64` than `ref` is, beyond the same tolerance:
     an element fp32 cannot resolve does not count against `out`, an error of
-    its own does. The excused elements are those over the tolerance raw and
-    within it arbitrated."""
+    its own does. `others` are more fp32 plain results of the same function
+    in other summation orders (a batch in another row order): an element
+    also agrees if it is no farther from `ref64` than one of them is. The
+    excused elements are those over the tolerance raw and within it
+    arbitrated."""
     raw = ((out - ref).abs() / (atol + rtol * ref.abs())).double()
-    excess = ((out.double() - ref64).abs() - (ref.double() - ref64).abs()) \
+    fp32_err = (ref.double() - ref64).abs()
+    for other in others:
+        fp32_err = torch.maximum(fp32_err, (other.double() - ref64).abs())
+    excess = ((out.double() - ref64).abs() - fp32_err) \
         / (atol + rtol * ref64.abs())
     judged = torch.minimum(raw, excess)
     return (raw.max().item(), judged.max().item(),

@@ -7,8 +7,11 @@ the repository's train.py).
 
 Trains on Stochastic Moving MNIST generated on the fly (digits and
 trajectories from the native generator, frames composited on the device;
-`--no_device_compose` composites them on the host) or on KTH (windows of a
-packed video tree, data/kth.py), with the dcgan or vgg encoder and decoder;
+`--no_device_compose` composites them on the host), on KTH (windows of a
+packed video tree, or of its PNG tree through the native PNG decoder,
+data/kth.py), on BAIR (30-frame RGB videos, PNG or packed tree,
+data/bair.py) or on Human3.6M (RGB videos held in memory, a frame every
+`--subsampling`, data/human.py), with the dcgan or vgg encoder and decoder;
 the training rollout goes through its CUDA kernels unless `--fused_rollout
 off`, and the vgg pools and upsamples always do. Batches are made
 `--n_workers` threads wide ahead of the step, and copied to the card one
@@ -40,8 +43,7 @@ writes a torch.profiler trace of steps 10-15 to DIR. `--config FILE`
 `--torch_amp`, `--apex_amp`) runs the encoder and decoder in bfloat16, the
 latent model and the loss in float32. The `.pt` model files are float32
 state_dicts in the reference key names: `test_main --model_name model.pt`
-evaluates them. Not ported yet (ROADMAP.md): several GPUs, Human3.6M and
-BAIR, KTH's PNG tree.
+evaluates them. Not ported yet (ROADMAP.md): several GPUs.
 """
 
 import os
@@ -80,12 +82,14 @@ def train_hparams(opt):
 
 def loaders(opt):
     """(train, val) loaders of the dataset's folds, validation at
-    seq_len_test, each `opt.n_workers` threads wide. Moving MNIST training
-    batches are digits and trajectories (composited on the device) unless
-    `opt.no_device_compose`; the others are whole uint8 frames. The
-    training loader makes two dispatches' batches ahead (at least
-    PREFETCH), so that a window of --steps_per_dispatch batches is ready
-    when the trainer takes it."""
+    seq_len_test (Human3.6M: frames of the same stride, so a validation
+    video spans (seq_len_test - 1) * subsampling + 1 frames), each
+    `opt.n_workers` threads wide. Moving MNIST training batches are digits
+    and trajectories (composited on the device) unless
+    `opt.no_device_compose`; the others are whole uint8 frames, (T, B, H,
+    W, nc). The training loader makes two dispatches' batches ahead (at
+    least PREFETCH), so that a window of --steps_per_dispatch batches is
+    ready when the trainer takes it."""
     dataset = load_dataset(opt)
     trainset, valset = dataset.get_fold("train"), dataset.get_fold("val")
     if opt.seq_len_test is not None:

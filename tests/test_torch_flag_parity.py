@@ -114,7 +114,7 @@ def test_mixed_precision_flags_select_the_jax_compute_dtype(tmp_path, flags,
 @pytest.mark.parametrize("flags", [
     ["--local_rank", "1"], ["--n_dcn", "2"],
     ["--coordinator_address", "auto"], ["--num_processes", "2"],
-    ["--process_id", "1"], ["--subsampling", "4"]])
+    ["--process_id", "1"]])
 def test_jax_flags_of_unported_parts_raise(tmp_path, flags):
     opt = parse(tmp_path, "--device", "cpu", *flags)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,5 +1,6 @@
-"""The PyTorch port imports neither jax nor srvp_tpu, and its entry points
-refuse CUDA where there is none instead of falling back to the CPU."""
+"""The PyTorch port imports neither jax nor srvp_tpu, nor PIL (its PNG
+frames go through its own decoder), and its entry points refuse CUDA
+where there is none instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -13,10 +14,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
 
+    BLOCKED = ("jax", "jaxlib", "srvp_tpu", "PIL")
+
     class Block:
-        # refuse jax and the JAX package at import time
+        # refuse jax, the JAX package and PIL at import time
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "srvp_tpu"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -24,12 +27,13 @@ SCRIPT = textwrap.dedent("""
     import srvp_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         srvp_tpu_torch.__path__, "srvp_tpu_torch.")]
-    assert "srvp_tpu_torch.bench" in names
+    assert {"srvp_tpu_torch.bench", "srvp_tpu_torch.data.png",
+            "srvp_tpu_torch.data.bair", "srvp_tpu_torch.data.human"} \
+        <= set(names)
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401  (its helpers; main() is not run)
-    loaded = [m for m in sys.modules
-              if m.split(".")[0] in ("jax", "jaxlib", "srvp_tpu")]
+    loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not loaded, loaded
 
     import torch

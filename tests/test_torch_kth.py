@@ -128,12 +128,17 @@ def test_test_fold_matches_jax(tree):
 
 
 def test_needs_a_complete_packed_tree(tmp_path):
-    with pytest.raises(FileNotFoundError, match="ROADMAP"):
+    """A packed tree whose COMPLETE.json miscounts its videos is not read;
+    without a PNG tree to read instead (tests/test_torch_datasets.py),
+    make_dataset raises."""
+    with pytest.raises(FileNotFoundError, match="no KTH PNG tree"):
         KTH.make_dataset(str(tmp_path), 64, 6, train=True)
     chip_smoke.write_kth_packed_tree(tmp_path, 64, seed=0)
+    assert KTH.make_dataset(str(tmp_path), 64, 6, train=True).packed
     marker = tmp_path / "packed_64" / "COMPLETE.json"
     marker.write_text(json.dumps({"videos": 149}))
-    with pytest.raises(FileNotFoundError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="COMPLETE.json must count "
+                                                "the 150 videos found"):
         KTH.make_dataset(str(tmp_path), 64, 6, train=True)
 
 

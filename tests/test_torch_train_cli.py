@@ -123,8 +123,7 @@ def test_mixed_precision_flags_train(tmp_path, flags, dtype, capsys):
                    for v in sd.values()), ckpt
 
 
-@pytest.mark.parametrize("flags", [
-    ["--n_devices", "2"], ["--dataset", "human"], ["--dataset", "bair"]])
+@pytest.mark.parametrize("flags", [["--n_devices", "2"]])
 def test_flags_of_unported_parts_raise(tmp_path, flags):
     opt = parse(tmp_path, "--device", "cpu", *flags)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
