@@ -177,12 +177,32 @@ Phases, each of which fails the script:
      configs/human.yaml (batch 100 x 16 frames at --subsampling 8, 6 steps
      in bf16; served at 8 + 45 frames, 2 batches of 8); KTH 6 steps in bf16
      from its PNG tree.
+ 17. main path, the evaluation metrics (metrics_path): random AlexNet and
+     LPIPS v0.1 weights in their official .pth files (the lin heads
+     non-negative) and a random I3D npz under the TF variable paths
+     (positive variances, through SRVP_TPU_I3D_WEIGHTS); the KTH vgg
+     evaluation of phase 8 (16 videos, 10 + 30 frames, 100 samples in
+     chunks of 10) through test_main without and then with --lpips_dir and
+     --fvd, both with cuDNN's deterministic algorithms: LPIPS finite and
+     >= 0, its lpips_best / lpips_worst archives, every other artifact and
+     result bit-equal to the run without LPIPS,
+     one finite positive FVD line, equal to fvd() called again, the
+     ground truth's distance to itself within FVD_SELF_RTOL of its
+     covariance's trace, exact launch counts; the card's LPIPS on one
+     chunk's 4,800 frame pairs and its I3D embeddings of 2 videos against
+     the port's CPU versions (LPIPS rtol 1e-4 / atol 1e-6, I3D rtol 1e-3 /
+     atol 1e-4); LPIPS ms per chunk, I3D ms per chunk of 16 videos, FVD
+     wall seconds and the evaluation's s per batch with and without
+     LPIPS; then BAIR (nc = 3) with both metrics on one batch of 16
+     synthetic videos, 2 + 28 frames, 20 samples (cut from 100).
 Then it prints one {"kernels": [...]} line and, last, the device line.
 It exits non-zero without a result when CUDA is unavailable.
 """
 
+import contextlib
 import copy
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -193,6 +213,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -212,6 +233,9 @@ from srvp_tpu_torch.kernels.peaks import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS,
 from srvp_tpu_torch.kernels import rollout as krollout
 from srvp_tpu_torch.kernels import rollout_train as krollout_train
 from srvp_tpu_torch.kernels import spatial as krspatial
+from srvp_tpu_torch.metrics import fvd as mfvd
+from srvp_tpu_torch.metrics import i3d as mi3d
+from srvp_tpu_torch.metrics import lpips as mlpips
 from srvp_tpu_torch.models.conv import decoder_spec, encoder_spec, stage_module
 from srvp_tpu_torch.models.lstm import lstm_apply
 from srvp_tpu_torch.models.mlp import MLP
@@ -1360,9 +1384,9 @@ def expect_launches(what, counts, expected):
                          f"{expected}")
 
 
-def check_artifacts(arts, n_videos, t_cond, t_pred, nx, nc=1):
+def check_artifacts(arts, n_videos, t_cond, t_pred, nx, nc=1, lpips=False):
     res = arts["results"]
-    if set(res) != {"psnr", "ssim"}:
+    if set(res) != {"psnr", "ssim"} | ({"lpips"} if lpips else set()):
         raise SystemExit(f"results.npz keys {sorted(res)}")
     for k, v in res.items():
         if v.shape != (n_videos,) or v.dtype != np.float32 \
@@ -1377,6 +1401,22 @@ def check_artifacts(arts, n_videos, t_cond, t_pred, nx, nc=1):
             raise SystemExit(f"{name}: {s.shape} {s.dtype}")
 
 
+def seeded_xp(cfg, name, n_videos, nt_test, model_seed, test_set=True):
+    """An experiment directory WORK_DIR/xp_<name> of cfg's model with
+    seeded random weights (model.pt) and, with test_set, a synthetic test
+    fold in WORK_DIR/data_<name>. Returns both directories."""
+    xp_dir, data_dir = WORK_DIR / f"xp_{name}", WORK_DIR / f"data_{name}"
+    xp_dir.mkdir(parents=True, exist_ok=True)
+    data_dir.mkdir(parents=True, exist_ok=True)
+    with open(xp_dir / "config.json", "w") as f:
+        json.dump(cfg, f)
+    torch.manual_seed(model_seed)
+    torch.save(SRVP(model_config(cfg)).state_dict(), xp_dir / "model.pt")
+    if test_set:
+        write_test_set(cfg, data_dir, n_videos, nt_test, model_seed)
+    return xp_dir, data_dir
+
+
 def eval_path(cfg, n_videos, nt_test, model_seed, xp_dir=None,
               data_dir=None, batch=BATCH):
     """The evaluation CLI on cfg's model with seeded random weights (or on
@@ -1386,14 +1426,7 @@ def eval_path(cfg, n_videos, nt_test, model_seed, xp_dir=None,
     launch counts; returns the kernel run's summary."""
     name = f"{cfg['dataset']}-{cfg['archi']}"
     if xp_dir is None:
-        xp_dir, data_dir = WORK_DIR / f"xp_{name}", WORK_DIR / f"data_{name}"
-        xp_dir.mkdir(parents=True, exist_ok=True)
-        data_dir.mkdir(parents=True, exist_ok=True)
-        with open(xp_dir / "config.json", "w") as f:
-            json.dump(cfg, f)
-        torch.manual_seed(model_seed)
-        torch.save(SRVP(model_config(cfg)).state_dict(), xp_dir / "model.pt")
-        write_test_set(cfg, data_dir, n_videos, nt_test, model_seed)
+        xp_dir, data_dir = seeded_xp(cfg, name, n_videos, nt_test, model_seed)
 
     t_cond = cfg["nt_cond"]
     t_pred = nt_test - t_cond
@@ -1413,7 +1446,7 @@ def eval_path(cfg, n_videos, nt_test, model_seed, xp_dir=None,
         runs[fused] += (counts,)
         check_artifacts(runs[fused][0], n_videos, t_cond, t_pred, cfg["nx"],
                         cfg["nc"])
-    (arts_k, secs_k, wall_k, counts), (arts_p, secs_p, wall_p, _) = \
+    (arts_k, secs_k, wall_k, _, counts), (arts_p, secs_p, wall_p, _, _) = \
         runs["on"], runs["off"]
 
     # kernel vs eager rollout, same noise: metrics to 1e-3 dB / 1e-4 SSIM
@@ -1450,23 +1483,49 @@ def eval_path(cfg, n_videos, nt_test, model_seed, xp_dir=None,
     return summary
 
 
+class Tee(io.StringIO):
+    """A text stream that keeps what is written and passes it on."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
 def run_cli(xp_dir, data_dir, fused, nt_test, n_samples=N_SAMPLES,
-            model_name="model.pt", batch=BATCH):
+            model_name="model.pt", batch=BATCH, extra=()):
+    """test_main with the protocol's flags and `extra`. Returns (artifacts,
+    batch seconds, wall seconds, the FVD it printed or None)."""
     opt_args = [
         "--xp_dir", str(xp_dir), "--data_dir", str(data_dir),
         "--batch_size", str(batch), "--n_samples", str(n_samples),
         "--samples_chunk", str(CHUNK), "--fused_rollout", fused,
         "--nt_gen", str(nt_test), "--model_name", model_name,
-        "--device", "cuda"]
+        "--device", "cuda", *extra]
     opt = test_main.create_test_args().parse_args(opt_args)
+    tee = Tee(sys.stdout)
     t0 = time.perf_counter()
-    batch_seconds = test_main.main(opt)
+    with contextlib.redirect_stdout(tee):
+        batch_seconds = test_main.main(opt)
     wall = time.perf_counter() - t0
+    fvd = [float(ln.split()[1]) for ln in tee.getvalue().splitlines()
+           if ln.startswith("FVD ")]
     arts = {"results": dict(np.load(xp_dir / "results.npz"))}
-    for name in ["cond_rec", "psnr_best", "psnr_worst", "ssim_best",
-                 "ssim_worst"] + [f"random_{i}" for i in range(1, 6)]:
+    metrics = ["psnr", "ssim"] + (["lpips"] if "lpips" in arts["results"]
+                                  else [])
+    for name in ["cond_rec"] + [f"{m}_{w}" for m in metrics
+                                for w in ("best", "worst")] \
+            + [f"random_{i}" for i in range(1, 6)]:
         arts[name] = dict(np.load(xp_dir / f"{name}.npz"))
-    return arts, batch_seconds, wall
+    if len(fvd) > 1:
+        raise SystemExit(f"test_main printed {len(fvd)} FVD lines")
+    return arts, batch_seconds, wall, fvd[0] if fvd else None
 
 
 def train_args(save_path, data_dir, n_steps, fused="on", cfg=XP_CONFIG,
@@ -1816,8 +1875,8 @@ def train_path(cfg, n_steps, warmup, batch_size, check_videos, test_dir,
         summary.update(check_step(opt, state, batch, margin, held,
                                   compute_dtype=compute_dtype))
     if test_dir is not None:
-        arts, _, _ = run_cli(xp_dir, test_dir, "on", nt_test,
-                             n_samples=CHUNK)
+        arts, _, _, _ = run_cli(xp_dir, test_dir, "on", nt_test,
+                                n_samples=CHUNK)
         psnr = arts["results"]["psnr"]
         if not np.all(np.isfinite(psnr)):
             raise SystemExit(f"test_main on the trained checkpoint: {psnr}")
@@ -2566,6 +2625,203 @@ def datasets_path():
     return out
 
 
+# the metrics phase (17): LPIPS at the golden's tolerance
+# (tests/test_lpips.py) and I3D at the JAX mirror test's
+# (tests/test_i3d_torch_mirror.py), card against the port's CPU version;
+# the Fréchet distance of a set of 16 embeddings with itself, float64
+# eigen-rounding of a rank-15 400 x 400 covariance, at most FVD_SELF_RTOL
+# of its trace (about 1.8e-7 of it on random embeddings, on the CPU); the
+# FVD test_main prints against fvd() called again at FVD_AGAIN_RTOL
+LPIPS_RTOL, LPIPS_ATOL = 1e-4, 1e-6
+I3D_RTOL, I3D_ATOL = 1e-3, 1e-4
+FVD_SELF_RTOL, FVD_AGAIN_RTOL = 1e-5, 1e-6
+# BAIR with both metrics: one batch of 16 test videos, 20 samples (cut
+# from the protocol's 100)
+METRICS_BAIR_VIDEOS, METRICS_BAIR_SAMPLES = 16, 20
+
+
+def write_lpips_weights(lpips_dir, seed):
+    """Random weights in the official files: a torchvision AlexNet
+    state_dict (features.{0,3,6,8,10}, OIHW, He-scaled) as
+    alexnet-owt-7be5be79.pth, and LPIPS v0.1's alex.pth
+    (lin{i}.model.1.weight, (1, C, 1, 1), non-negative)."""
+    gen = torch.Generator().manual_seed(seed)
+    backbone, lins = {}, {}
+    for i, (idx, (co, ci, k, _, _)) in enumerate(zip(mlpips._FEATURE_IDX,
+                                                     mlpips._ALEX_CONVS)):
+        backbone[f"features.{idx}.weight"] = torch.randn(
+            co, ci, k, k, generator=gen) * (2.0 / (ci * k * k)) ** 0.5
+        backbone[f"features.{idx}.bias"] = 0.01 * torch.randn(co,
+                                                              generator=gen)
+        lins[f"lin{i}.model.1.weight"] = torch.rand(1, co, 1, 1,
+                                                    generator=gen) / co
+    Path(lpips_dir).mkdir(parents=True, exist_ok=True)
+    torch.save(backbone, Path(lpips_dir) / "alexnet-owt-7be5be79.pth")
+    torch.save(lins, Path(lpips_dir) / "alex.pth")
+
+
+def write_i3d_weights(path, seed):
+    """A random I3D npz under the TF variable paths
+    (metrics/i3d.variable_specs): He-scaled kernels, the batch norms'
+    moving variances in [0.5, 1.5), their means, offsets and the Logits
+    bias 0.1 N(0, 1)."""
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    for key, shape in mi3d.variable_specs():
+        if key.endswith("/w"):
+            arrays[key] = rng.randn(*shape) * (2.0 / np.prod(shape[:-1])) ** 0.5
+        elif key.endswith("moving_variance"):
+            arrays[key] = rng.uniform(0.5, 1.5, shape)
+        else:
+            arrays[key] = 0.1 * rng.randn(*shape)
+    np.savez(path, **{k: v.astype(np.float32) for k, v in arrays.items()})
+
+
+def metrics_cli(cfg, xp_dir, data_dir, nt_test, n_videos, n_samples, extra):
+    """test_main on cfg's seeded model, with exact launch counts (one batch:
+    the rollout a chunk, vgg's 4 pools and 8 upsamples a chunk). Returns
+    run_cli's tuple."""
+    klaunches.reset()
+    out = run_cli(xp_dir, data_dir, "on", nt_test, n_samples=n_samples,
+                  extra=extra)
+    n_chunks = -(-n_videos // BATCH) * (n_samples // CHUNK)
+    expect_launches(f"{cfg['dataset']} evaluation {list(extra)}",
+                    klaunches.counts(), dict(
+                        prior_rollout=n_chunks, maxpool_fwd=4 * n_chunks,
+                        upsample_fwd=8 * n_chunks))
+    check_artifacts(out[0], n_videos, cfg["nt_cond"], nt_test - cfg["nt_cond"],
+                    cfg["nx"], cfg["nc"], lpips="--lpips_dir" in extra)
+    lp = out[0]["results"].get("lpips")
+    if lp is not None and not (np.all(np.isfinite(lp)) and np.all(lp >= 0)):
+        raise SystemExit(f"LPIPS results {lp}")
+    if ("--fvd" in extra) != (out[3] is not None) or (
+            out[3] is not None and not (np.isfinite(out[3]) and out[3] > 0)):
+        raise SystemExit(f"FVD printed: {out[3]}")
+    return out
+
+
+def metrics_path():
+    """Phase 17: LPIPS and FVD through test_main (KTH vgg at full width as
+    phase 8 evaluates it, then BAIR with 3 channels), their agreement with
+    the runs without them and with the port's CPU versions, and their
+    times. Returns the summary."""
+    strict_fp32()
+    root = WORK_DIR / "metrics"
+    shutil.rmtree(root, ignore_errors=True)
+    lpips_dir, i3d_path = root / "lpips", root / "i3d.npz"
+    write_lpips_weights(lpips_dir, SEED + 30)
+    write_i3d_weights(i3d_path, SEED + 31)
+    with mock.patch.dict(os.environ, SRVP_TPU_I3D_WEIGHTS=str(i3d_path)):
+        return metrics_runs(lpips_dir, i3d_path)
+
+
+def metrics_runs(lpips_dir, i3d_path):
+    """metrics_path's runs and checks, I3D's weights at i3d_path."""
+    cfg, nt_test = KTH_CONFIG, KTH_NT_GEN
+    t_cond = cfg["nt_cond"]
+    xp_dir, data_dir = seeded_xp(cfg, "metrics-kth", KTH_VIDEOS, nt_test,
+                                 SEED)
+    metric_flags = ("--lpips_dir", str(lpips_dir), "--fvd")
+    # cuDNN's default algorithms decode other bits from run to run (x_pred
+    # within 1.2e-7: scripts/eval_determinism.py, PERF.md), which can flip
+    # the best of near-tied samples; the two runs held bit-equal take its
+    # deterministic ones, as phases 14-15 do
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = metrics_cli(cfg, xp_dir, data_dir, nt_test, KTH_VIDEOS,
+                            N_SAMPLES, ())
+        full = metrics_cli(cfg, xp_dir, data_dir, nt_test, KTH_VIDEOS,
+                           N_SAMPLES, metric_flags)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    arts_p, arts_m, fvd_cli = plain[0], full[0], full[3]
+    differ = sorted(
+        [f"results.{k}" for k, v in arts_p["results"].items()
+         if not np.array_equal(v, arts_m["results"][k])]
+        + [k for k in arts_p if k != "results"
+           and not np.array_equal(arts_p[k]["samples"],
+                                  arts_m[k]["samples"])])
+
+    # FVD again through fvd(), timed; the ground truth against itself
+    seqs = np.load(data_dir / f"svg_test_set_{nt_test}.npz")["sequences"]
+    real = seqs[:, :, :, :, None]              # (N, T, H, W, 1) uint8
+    fake = np.concatenate([real[:, :t_cond],
+                           arts_m["random_1"]["samples"]], axis=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fvd_again = mfvd.fvd(real, fake, str(i3d_path), "cuda")
+    fvd_s = time.perf_counter() - t0
+    params = mi3d.load_i3d_npz(str(i3d_path))
+    embed = mfvd.make_embedder(params, torch.device("cuda"))
+    emb_real = mfvd.compute_embeddings(embed, real)
+    fvd_self = mfvd.frechet_distance(emb_real, emb_real)
+    trace = float(np.trace(np.cov(emb_real.astype(np.float64),
+                                  rowvar=False)))
+    chunk = torch.from_numpy(np.repeat(real[:mfvd.CHUNK], 3, axis=-1))
+    i3d_ms = cuda_ms(lambda: embed(chunk), warmup=1, iters=3)
+    emb_cpu = mfvd.make_embedder(params, torch.device("cpu"))(chunk[:2])
+    i3d_err = _worst(embed(chunk[:2]).cpu(), emb_cpu, I3D_RTOL, I3D_ATOL)
+
+    # LPIPS on one chunk's frames: the 5 random samples of each video,
+    # twice, against the targets (T, S * B = 160)
+    rows = np.concatenate([arts_m[f"random_{i}"]["samples"]
+                           for i in range(1, 6)] * 2, axis=0)
+    pred = torch.from_numpy(rows.transpose(1, 0, 2, 3, 4)).float() / 255.0
+    target = torch.from_numpy(np.tile(real[:, t_cond:], (10, 1, 1, 1, 1))
+                              .transpose(1, 0, 2, 3, 4)).float() / 255.0
+    lp_gpu_fn = mlpips.make_video_lpips(str(lpips_dir), torch.device("cuda"))
+    pred_d, target_d = pred.cuda(), target.cuda()
+    lpips_ms = cuda_ms(lambda: lp_gpu_fn(pred_d, target_d), warmup=2,
+                       iters=5)
+    lp_gpu = lp_gpu_fn(pred_d, target_d).cpu()
+    lp_cpu = mlpips.make_video_lpips(str(lpips_dir),
+                                     torch.device("cpu"))(pred, target)
+    lpips_err = _worst(lp_gpu, lp_cpu, LPIPS_RTOL, LPIPS_ATOL)
+
+    # BAIR, 3 channels: one batch of 16 videos, 2 + 28 frames
+    bcfg = dict(BAIR_CONFIG, seq_len_test=BAIR_NT_GEN)
+    bxp, bdata = seeded_xp(bcfg, "metrics-bair", METRICS_BAIR_VIDEOS,
+                           BAIR_NT_GEN, SEED + 32, test_set=False)
+    write_bair_trees(bdata / "png", bdata, 1, METRICS_BAIR_VIDEOS, SEED + 33)
+    bair = metrics_cli(bcfg, bxp, bdata, BAIR_NT_GEN, METRICS_BAIR_VIDEOS,
+                       METRICS_BAIR_SAMPLES, metric_flags)
+
+    summary = dict(
+        kth=dict(videos=KTH_VIDEOS, samples=N_SAMPLES, nt_cond=t_cond,
+                 nt_test=nt_test,
+                 lpips_mean=float(arts_m["results"]["lpips"].mean()),
+                 fvd=fvd_cli, fvd_again=fvd_again, fvd_self=fvd_self,
+                 fvd_self_over_trace=abs(fvd_self) / trace,
+                 differ_from_plain_run=differ,
+                 s_per_batch=full[1][0], s_per_batch_without_lpips=plain[1][0],
+                 wall_s=full[2], wall_s_without_metrics=plain[2]),
+        lpips_chunk=dict(pairs=int(pred.shape[0] * pred.shape[1]),
+                         ms=lpips_ms, max_abs_err=lpips_err[0],
+                         err_over_tol=lpips_err[1]),
+        i3d_chunk=dict(videos=mfvd.CHUNK, frames=int(chunk.shape[1]),
+                       ms=i3d_ms, max_abs_err_2_videos=i3d_err[0],
+                       err_over_tol_2_videos=i3d_err[1]),
+        fvd_s=fvd_s,
+        bair=dict(videos=METRICS_BAIR_VIDEOS, samples=METRICS_BAIR_SAMPLES,
+                  nt_cond=bcfg["nt_cond"], nt_test=BAIR_NT_GEN,
+                  lpips_mean=float(bair[0]["results"]["lpips"].mean()),
+                  fvd=bair[3], s_per_batch=bair[1][0]))
+    print("metrics_path " + json.dumps(summary), flush=True)
+    if differ:
+        raise SystemExit(f"--lpips_dir changed the evaluation: {differ}")
+    if abs(fvd_again - fvd_cli) > FVD_AGAIN_RTOL * abs(fvd_cli):
+        raise SystemExit(f"FVD {fvd_cli} printed, {fvd_again} again")
+    if abs(fvd_self) > FVD_SELF_RTOL * trace:
+        raise SystemExit(f"FVD of the ground truth with itself {fvd_self} "
+                         f"(covariance trace {trace})")
+    if not (lpips_err[1] <= 1 and lpips_err[2] and i3d_err[1] <= 1
+            and i3d_err[2]):
+        raise SystemExit(f"card against CPU (max abs error, of the "
+                         f"tolerance, finite): LPIPS {lpips_err}, I3D "
+                         f"{i3d_err}")
+    return summary
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                bound_ms, bound_by, library_ms=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2687,6 +2943,11 @@ def main():
     t0 = time.perf_counter()
     datasets_path()
     print(f"datasets phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the evaluation metrics: LPIPS and FVD through test_main
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    met = metrics_path()
+    print(f"metrics phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = "srvp_tpu_torch/csrc/rollout_train.cu"
     kernels = [
@@ -2793,6 +3054,20 @@ def main():
               f"{info['mfu']:.4f}, peak {info['peak_memory_gb']:.2f} GB; "
               f"generation {bench_line['rollout_frames_per_sec_per_chip']:.1f}"
               f" frames/s", flush=True)
+    kth_m = met["kth"]
+    print(f"metrics (fp32, TF32 off): LPIPS {met['lpips_chunk']['ms']:.3f} "
+          f"ms per chunk of {met['lpips_chunk']['pairs']} frame pairs; I3D "
+          f"{met['i3d_chunk']['ms']:.3f} ms per chunk of "
+          f"{met['i3d_chunk']['videos']} videos x "
+          f"{met['i3d_chunk']['frames']} frames; FVD {met['fvd_s']:.3f} s "
+          f"wall for 2 x {KTH_VIDEOS} videos; KTH evaluation (cuDNN "
+          f"deterministic) {kth_m['s_per_batch']:.3f} s per batch with "
+          f"LPIPS, {kth_m['s_per_batch_without_lpips']:.3f} without (phase 8,"
+          f" default algorithms: {kth_summary['s_per_batch_kernel']:.3f}); "
+          f"BAIR "
+          f"{met['bair']['s_per_batch']:.3f} s per batch of "
+          f"{METRICS_BAIR_VIDEOS} x {METRICS_BAIR_SAMPLES} samples with both",
+          flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 """Best/worst-of-N evaluation (counterpart of srvp_tpu/eval_lib.py).
 
 Per batch of videos: encode the conditioning frames once, then N stochastic
-rollouts in chunks; per sample PSNR and SSIM per video; keep on the device
-the best and worst sample per metric and video (strictly better replaces, so
-the first sample wins ties), the first five samples, and sample 0's
+rollouts in chunks; per sample PSNR and SSIM (and LPIPS when given) per
+video; keep on the device the best and worst sample per metric and video
+(strictly better replaces, so the first sample wins ties; LPIPS is better
+lower, the others higher), the first five samples, and sample 0's
 reconstruction of the conditioning frames. Only the selection goes to the
 host.
 
@@ -27,6 +28,9 @@ from srvp_tpu_torch.config import strict_fp32
 from srvp_tpu_torch.metrics.pixel import frame_mse, psnr_from_mse
 from srvp_tpu_torch.metrics.ssim import video_ssim
 from srvp_tpu_torch.models.lstm import lstm_apply
+
+LOWER_BETTER = {"lpips": True, "psnr": False, "ssim": False}
+
 
 def chunk_noise(cfg, bsz, n_samples, nt_cond, nt_test, o_inf, o_gen,
                 generator, device):
@@ -76,12 +80,13 @@ def sample_rollout(model, hx, hx_z, n_samples, nt_gen, o_inf, o_gen, eps,
 
 @torch.no_grad()
 def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
-                  use_kernel_rollout=True, compute_dtype=None):
+                  use_kernel_rollout=True, compute_dtype=None, lpips_fn=None):
     """One chunk of S = n_samples samples for every video of the batch.
 
     x_cond: (nt_cond, B, H, W, C), x_target: (T_pred, B, H, W, C) in [0, 1];
-    eps: chunk_noise(...). Returns (x_pred_u8 (S, B, T_pred, H, W, C),
-    x_rec_u8 (B, nt_cond, H, W, C), {psnr, ssim: (S, B)}).
+    eps: chunk_noise(...); lpips_fn: metrics.lpips.make_video_lpips(...) or
+    None. Returns (x_pred_u8 (S, B, T_pred, H, W, C), x_rec_u8 (B, nt_cond,
+    H, W, C), {psnr, ssim[, lpips]: (S, B)}).
     """
     bsz = x_cond.shape[1]
     compute_dtype = compute_dtype or x_cond.dtype
@@ -109,6 +114,9 @@ def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
     ssim_v = video_ssim(x_pred, x_target_f).mean(2).mean(0)
     metrics = {"psnr": psnr.reshape(bsz, n_samples).T,
                "ssim": ssim_v.reshape(bsz, n_samples).T}
+    if lpips_fn is not None:
+        metrics["lpips"] = lpips_fn(x_pred, x_target_f).mean(0) \
+            .reshape(bsz, n_samples).T
     x_pred_u8 = ((x_pred * 255.0).to(torch.uint8)
                  .reshape((t_pred, bsz, n_samples) + x_pred.shape[2:])
                  .permute(2, 1, 0, 3, 4, 5))
@@ -122,9 +130,12 @@ def init_select_carry(metric_names, bsz, t_pred, t_cond, hw_c, n_random,
                                     device=device)
     carry = {"random": u8(n_random, bsz, t_pred, *hw_c),
              "rec": u8(bsz, t_cond, *hw_c)}
-    for name in metric_names:   # higher is better for PSNR and SSIM
-        carry[f"{name}_best_val"] = torch.full((bsz,), -np.inf, device=device)
-        carry[f"{name}_worst_val"] = torch.full((bsz,), np.inf, device=device)
+    for name in metric_names:
+        sign = 1.0 if LOWER_BETTER[name] else -1.0
+        carry[f"{name}_best_val"] = torch.full((bsz,), sign * np.inf,
+                                               device=device)
+        carry[f"{name}_worst_val"] = torch.full((bsz,), -sign * np.inf,
+                                                device=device)
         carry[f"{name}_best_frm"] = u8(bsz, t_pred, *hw_c)
         carry[f"{name}_worst_frm"] = u8(bsz, t_pred, *hw_c)
     return carry
@@ -144,9 +155,12 @@ def select_update(carry, x_pred_u8, x_rec_u8, metrics, chunk_start):
             carry["random"] = carry["random"].clone()
             carry["random"][gid] = frm
         for name, vals in metrics.items():
-            v = vals[s]
-            better = v > carry[f"{name}_best_val"]
-            worse = v < carry[f"{name}_worst_val"]
+            v, best, worst = (vals[s], carry[f"{name}_best_val"],
+                              carry[f"{name}_worst_val"])
+            if LOWER_BETTER[name]:
+                better, worse = v < best, v > worst
+            else:
+                better, worse = v > best, v < worst
             bmask = better.reshape((-1,) + (1,) * (frm.ndim - 1))
             wmask = worse.reshape((-1,) + (1,) * (frm.ndim - 1))
             carry[f"{name}_best_val"] = torch.where(
@@ -162,11 +176,12 @@ def select_update(carry, x_pred_u8, x_rec_u8, metrics, chunk_start):
 
 def select_chunk(carry, model, x_cond, x_target, n_samples, chunk_start,
                  o_inf, o_gen, eps, use_kernel_rollout=True,
-                 compute_dtype=None):
+                 compute_dtype=None, lpips_fn=None):
     """compute_chunk followed by select_update."""
     x_pred_u8, x_rec_u8, metrics = compute_chunk(
         model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
-        use_kernel_rollout=use_kernel_rollout, compute_dtype=compute_dtype)
+        use_kernel_rollout=use_kernel_rollout, compute_dtype=compute_dtype,
+        lpips_fn=lpips_fn)
     return select_update(carry, x_pred_u8, x_rec_u8, metrics, chunk_start)
 
 
@@ -178,10 +193,11 @@ def _host_u8(x):
 
 def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
              o_inf, o_gen, pad_to=None, use_kernel_rollout=True,
-             compute_dtype=None):
+             compute_dtype=None, lpips_fn=None):
     """Evaluation loop over host batches (T, B, H, W, C) float32 on one
     device (the model's). Ragged batches are edge-padded to `pad_to` videos
-    and the padding is dropped on the host.
+    and the padding is dropped on the host. With `lpips_fn` (on the model's
+    device) LPIPS is a third metric.
 
     Returns (results {name: (N,) best value per video}, samples {artifact
     name: uint8 array}, cond, gt) like the JAX run_test_device, plus the
@@ -197,7 +213,7 @@ def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
     n_chunks = n_samples // chunk
     n_random = min(5, n_samples)
     t_pred = nt_test - nt_cond
-    metric_names = ["psnr", "ssim"]
+    metric_names = ["psnr", "ssim"] + (["lpips"] if lpips_fn else [])
     random_samples = [[] for _ in range(n_random)]
     cond, cond_rec, gt, batch_seconds = [], [], [], []
     results = {name: [] for name in metric_names}
@@ -227,7 +243,8 @@ def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
             carry = select_chunk(carry, model, x_cond, x_target, chunk,
                                  c * chunk, o_inf, o_gen, eps,
                                  use_kernel_rollout=use_kernel_rollout,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype,
+                                 lpips_fn=lpips_fn)
         carry = {k: v[:, :real_bsz] if k == "random" else v[:real_bsz]
                  for k, v in carry.items()}
         carry = {k: v.cpu().numpy() for k, v in carry.items()}

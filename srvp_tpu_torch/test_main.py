@@ -12,10 +12,15 @@ subsampling) and BAIR's `test` fold (PNG or packed tree), the last three
 through the dataset classes (data/base.load_dataset), as test.py reads
 them.
 
-    python -m srvp_tpu_torch.test_main --xp_dir XP --data_dir DATA
+    python -m srvp_tpu_torch.test_main --xp_dir XP --data_dir DATA \
+        [--lpips_dir LPIPS] [--fvd]
 
-LPIPS and FVD need pretrained weights that the repository does not hold yet;
-their flags raise.
+--lpips_dir adds LPIPS (AlexNet, metrics/lpips.py; the weights are read
+from that directory) as a third metric, lower is better, with its
+`lpips_best` / `lpips_worst` archives; --fvd prints the FVD of the
+conditioning + ground-truth videos against the conditioning + first
+sample ones (I3D, metrics/fvd.py; the weights from SRVP_TPU_I3D_WEIGHTS,
+checked before sampling). Both run on the model's device.
 """
 
 import argparse
@@ -31,6 +36,8 @@ from srvp_tpu_torch.data.base import load_dataset
 from srvp_tpu_torch.data.loader import dataset_batches
 from srvp_tpu_torch.data.mmnist_test import iterate_batches, load_test_sequences
 from srvp_tpu_torch.eval_lib import run_test
+from srvp_tpu_torch.metrics.fvd import fvd, require_i3d
+from srvp_tpu_torch.metrics.lpips import make_video_lpips
 from srvp_tpu_torch.models.srvp import SRVP
 from srvp_tpu_torch.utils.weights import load_checkpoint
 
@@ -38,16 +45,18 @@ from srvp_tpu_torch.utils.weights import load_checkpoint
 def create_test_args():
     p = argparse.ArgumentParser(
         prog="Stochastic Latent Residual Video Prediction (testing, GPU)",
-        description="Evaluates a trained SRVP model: PSNR and SSIM; saves "
-                    "best/worst/random prediction npz artifacts.")
+        description="Evaluates a trained SRVP model: PSNR, SSIM, LPIPS and "
+                    "FVD; saves best/worst/random prediction npz "
+                    "artifacts.")
     p.add_argument("--xp_dir", type=str, metavar="DIR", required=True,
                    help="Directory with the model checkpoint and its "
                         "config.json.")
     p.add_argument("--data_dir", type=str, metavar="DIR", required=True,
                    help="Directory where the dataset is saved.")
     p.add_argument("--lpips_dir", type=str, metavar="DIR", default=None,
-                   help="Not supported yet (LPIPS weights are not in the "
-                        "repository).")
+                   help="Directory with LPIPS v0.1 weights (alex.pth) and "
+                        "a torchvision AlexNet (alexnet.pth or "
+                        "alexnet-owt-*.pth). If omitted, LPIPS is skipped.")
     p.add_argument("--n_euler_steps", type=int, metavar="STEPS", default=None,
                    help="Euler steps per frame for prediction (default: "
                         "training value).")
@@ -70,8 +79,8 @@ def create_test_args():
     p.add_argument("--n_devices", type=int, metavar="NB", default=None,
                    help="Only 1 is supported: evaluation runs on one card.")
     p.add_argument("--fvd", action="store_true",
-                   help="Not supported yet (I3D weights are not in the "
-                        "repository).")
+                   help="Whether to compute FVD (I3D weights npz from "
+                        "SRVP_TPU_I3D_WEIGHTS).")
     p.add_argument("--test_seed", type=int, metavar="SEED", default=1,
                    help="Seed of the sampling generator.")
     p.add_argument("--samples_chunk", type=int, metavar="NB", default=10,
@@ -92,15 +101,13 @@ def resolve_nt_test(opt, xp_config):
 
 def main(opt):
     """Runs the evaluation; returns the per-batch wall-clock seconds."""
-    if opt.lpips_dir:
-        raise NotImplementedError(
-            "LPIPS is not ported yet: its weights are not in the repository")
-    if opt.fvd:
-        raise NotImplementedError(
-            "FVD is not ported yet: the I3D weights are not in the repository")
     if opt.n_devices not in (None, 1):
         raise ValueError("--n_devices: evaluation runs on one card")
     device = resolve_device(opt.device)
+    lpips_fn = make_video_lpips(opt.lpips_dir, device) if opt.lpips_dir \
+        else None
+    # missing I3D weights fail here, before the sampling loop
+    i3d_path = require_i3d() if opt.fvd else None
     with open(os.path.join(opt.xp_dir, "config.json")) as f:
         xp_config = json.load(f)
     nt_cond = opt.nt_cond if opt.nt_cond is not None else xp_config["nt_cond"]
@@ -129,15 +136,24 @@ def main(opt):
     print("Evaluation...")
     generator = torch.Generator(device=device)
     generator.manual_seed(opt.test_seed)
-    results, samples, _, _, batch_seconds = run_test(
+    results, samples, cond, gt, batch_seconds = run_test(
         model, batches, nt_cond, nt_test,
         opt.n_samples, opt.samples_chunk, generator, o_inf, o_gen,
-        pad_to=opt.batch_size, use_kernel_rollout=opt.fused_rollout != "off")
+        pad_to=opt.batch_size, use_kernel_rollout=opt.fused_rollout != "off",
+        lpips_fn=lpips_fn)
+
+    fvd_value = None
+    if opt.fvd:
+        fvd_value = fvd(np.concatenate([cond, gt], axis=1),
+                        np.concatenate([cond, samples["random_1"]], axis=1),
+                        i3d_path, device)
 
     print("\n")
     print("Results:")
     for name, res in results.items():
         print(name, res.mean(), "+/-", 1.960 * res.std() / np.sqrt(len(res)))
+    if fvd_value is not None:
+        print("FVD", fvd_value)
     np.savez_compressed(os.path.join(opt.xp_dir, "results.npz"), **results)
     for name, res in samples.items():
         np.savez_compressed(os.path.join(opt.xp_dir, f"{name}.npz"),

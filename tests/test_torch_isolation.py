@@ -1,6 +1,7 @@
 """The PyTorch port imports neither jax nor srvp_tpu, nor PIL (its PNG
-frames go through its own decoder), and its entry points refuse CUDA
-where there is none instead of falling back to the CPU."""
+frames go through its own decoder), its evaluation metrics (LPIPS, I3D,
+FVD) included, and its entry points refuse CUDA where there is none
+instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -28,8 +29,9 @@ SCRIPT = textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(
         srvp_tpu_torch.__path__, "srvp_tpu_torch.")]
     assert {"srvp_tpu_torch.bench", "srvp_tpu_torch.data.png",
-            "srvp_tpu_torch.data.bair", "srvp_tpu_torch.data.human"} \
-        <= set(names)
+            "srvp_tpu_torch.data.bair", "srvp_tpu_torch.data.human",
+            "srvp_tpu_torch.metrics.lpips", "srvp_tpu_torch.metrics.i3d",
+            "srvp_tpu_torch.metrics.fvd"} <= set(names)
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401  (its helpers; main() is not run)
