@@ -195,7 +195,32 @@ Phases, each of which fails the script:
      wall seconds and the evaluation's s per batch with and without
      LPIPS; then BAIR (nc = 3) with both metrics on one batch of 16
      synthetic videos, 2 + 28 frames, 20 samples (cut from 100).
-Then it prints one {"kernels": [...]} line and, last, the device line.
+ 18. main path, serving (serving_path): the generation program exported
+     by srvp_tpu_torch.export at full width with seeded weights
+     (SERVING_EXPORTS: dcgan fp32 and bf16 with a symbolic batch, KTH vgg
+     bf16 at o = 2, dcgan fp32 pinned at batch 16; each artifact's bytes
+     and export seconds printed), loaded on the card with load_serving and
+     run on 16 synthetic videos against the live serving core on the same
+     seed under cuDNN's deterministic algorithms: bit for bit in fp32, at
+     most one uint8 level apart in bf16 (the share of pixels that differ
+     printed); kernel 1 launched once a call and, at KTH, kernels 4 and 6
+     at the live core's counts, through the srvp custom ops; the same seed
+     twice the same bits, another seed other predicted frames; batches 1,
+     16 and 128 from the symbolic artifact, the pinned one equal to it at
+     its batch and refusing batch 8; the fp32 dcgan file loaded onto the
+     CPU and onto the card in a child process that imports load_serving
+     alone (batch 2, one uint8 level; no srvp_tpu_torch.models module
+     loaded); bench_serving's timing of the bf16 artifacts at batches 1,
+     16 and 128 (p50 / p95 device and end-to-end ms, frames/s); then the
+     generate and swap CLIs at full dcgan width on 4 synthetic videos
+     (shapes, GIFs, the swap grid's diagonal equal to generate's sample 0
+     and to the serving core, exact launches).
+test_main runs under cuDNN's deterministic algorithms; phases 6 and 8 run
+its kernel evaluation once more under cuDNN's defaults and print the s per
+batch of both.
+Then it prints one {"kernels": [...]} line (the rows of kernels 1, 4 and 6
+also give `serving_launches`, their launches in phase 18's checks) and,
+last, the device line.
 It exits non-zero without a result when CUDA is unavailable.
 """
 
@@ -219,9 +244,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from srvp_tpu_torch import bench_serving as sbench
+from srvp_tpu_torch import export as sexport
+from srvp_tpu_torch import generate as sgenerate
+from srvp_tpu_torch import swap as sswap
 from srvp_tpu_torch import (bench, bench_conv_stage, test_main, train_lib,
                             train_main)
-from srvp_tpu_torch.config import model_config, strict_fp32
+from srvp_tpu_torch.config import (cudnn_deterministic, model_config,
+                                   strict_fp32)
 from srvp_tpu_torch.data.device_compose import materialize, to_device
 from srvp_tpu_torch.kernels import build as kbuild
 from srvp_tpu_torch.kernels import conv_stage as kcs
@@ -240,6 +270,7 @@ from srvp_tpu_torch.models.conv import decoder_spec, encoder_spec, stage_module
 from srvp_tpu_torch.models.lstm import lstm_apply
 from srvp_tpu_torch.models.mlp import MLP
 from srvp_tpu_torch.models.srvp import SRVP, rollout_masks
+from srvp_tpu_torch.ops import counter_rng
 from srvp_tpu_torch.ops.init import CONV_STD
 
 ROOT = Path(__file__).resolve().parent
@@ -1418,12 +1449,15 @@ def seeded_xp(cfg, name, n_videos, nt_test, model_seed, test_set=True):
 
 
 def eval_path(cfg, n_videos, nt_test, model_seed, xp_dir=None,
-              data_dir=None, batch=BATCH):
+              data_dir=None, batch=BATCH, default_algos=False):
     """The evaluation CLI on cfg's model with seeded random weights (or on
     the model.pt of the trainer's `xp_dir`, on the test fold in
     `data_dir`), batches of `batch` videos, through the prior-rollout
     kernel and then through the eager rollout on the same noise, with exact
-    launch counts; returns the kernel run's summary."""
+    launch counts; returns the kernel run's summary. test_main runs under
+    cuDNN's deterministic algorithms; with `default_algos` the kernel run
+    is made again under cuDNN's defaults, which the summary times beside
+    it (its frames within one uint8 level)."""
     name = f"{cfg['dataset']}-{cfg['archi']}"
     if xp_dir is None:
         xp_dir, data_dir = seeded_xp(cfg, name, n_videos, nt_test, model_seed)
@@ -1436,18 +1470,24 @@ def eval_path(cfg, n_videos, nt_test, model_seed, xp_dir=None,
     # encode and the 4 upsamples of each of the two decodes
     vgg = 1 if cfg["archi"] == "vgg" else 0
     runs = {}
-    for fused in ("on", "off"):
+    for fused, algos in (("on", "deterministic"), ("off", "deterministic"),
+                         ("on", "default")):
+        if algos == "default" and not default_algos:
+            continue
         klaunches.reset()
-        runs[fused] = run_cli(xp_dir, data_dir, fused, nt_test, batch=batch)
+        with (mock.patch.object(test_main, "cudnn_deterministic",
+                                contextlib.nullcontext)
+              if algos == "default" else contextlib.nullcontext()):
+            run = run_cli(xp_dir, data_dir, fused, nt_test, batch=batch)
         counts = klaunches.counts()
         expect_launches(f"{name} evaluation, rollout {fused}", counts, dict(
             prior_rollout=n_chunks if fused == "on" else 0,
             maxpool_fwd=4 * vgg * n_chunks, upsample_fwd=8 * vgg * n_chunks))
-        runs[fused] += (counts,)
-        check_artifacts(runs[fused][0], n_videos, t_cond, t_pred, cfg["nx"],
+        runs[fused, algos] = run + (counts,)
+        check_artifacts(run[0], n_videos, t_cond, t_pred, cfg["nx"],
                         cfg["nc"])
     (arts_k, secs_k, wall_k, _, counts), (arts_p, secs_p, wall_p, _, _) = \
-        runs["on"], runs["off"]
+        runs["on", "deterministic"], runs["off", "deterministic"]
 
     # kernel vs eager rollout, same noise: metrics to 1e-3 dB / 1e-4 SSIM
     # (fp32 sums in another order), frames to one u8 level (truncation)
@@ -1475,6 +1515,17 @@ def eval_path(cfg, n_videos, nt_test, model_seed, xp_dir=None,
     frames = batch * N_SAMPLES * t_pred
     summary["pred_frames_per_s_kernel"] = frames / summary["s_per_batch_kernel"]
     summary["pred_frames_per_s_plain"] = frames / summary["s_per_batch_plain"]
+    if default_algos:
+        arts_d, secs_d = runs["on", "default"][:2]
+        summary["s_per_batch_default_algos"] = float(
+            np.mean(secs_d[1:] or secs_d))
+        summary["batch_seconds_default_algos"] = secs_d
+        d_default = max(int(np.abs(arts_k[k]["samples"].astype(np.int16)
+                                   - arts_d[k]["samples"]).max())
+                        for k in ["cond_rec"] + [f"random_{i}"
+                                                 for i in range(1, 6)])
+        summary["max_u8_diff_default_algos"] = d_default
+        d_frames["default_algos"] = d_default
     print("eval_path " + json.dumps(summary), flush=True)
     if d_metric["psnr"] > 1e-3 or d_metric["ssim"] > 1e-4 \
             or max(d_frames.values()) > 1:
@@ -1716,14 +1767,10 @@ def check_step(opt, state_dict, batch, margin, held, hold=True,
                         STEP_GRAD_ATOL)[1] for k in default[0])
     del default
     (ref, ref_kw), (control, control_kw) = spec["reference"], spec["control"]
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with cudnn_deterministic():
         runs = {arm: grads(**kw) for arm, kw in (
             ("kernel", dict(use_kernel=True)), ("eager", dict(use_kernel=False)),
             (ref, ref_kw), (control, control_kw))}
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     loss_k, g_k = runs["kernel"]
     loss_e, g_e = runs["eager"]
     tol = lambda g: STEP_GRAD_ATOL + spec["rtol"] * g.norm()  # noqa: E731
@@ -2722,18 +2769,14 @@ def metrics_runs(lpips_dir, i3d_path):
     xp_dir, data_dir = seeded_xp(cfg, "metrics-kth", KTH_VIDEOS, nt_test,
                                  SEED)
     metric_flags = ("--lpips_dir", str(lpips_dir), "--fvd")
-    # cuDNN's default algorithms decode other bits from run to run (x_pred
-    # within 1.2e-7: scripts/eval_determinism.py, PERF.md), which can flip
-    # the best of near-tied samples; the two runs held bit-equal take its
-    # deterministic ones, as phases 14-15 do
-    torch.backends.cudnn.deterministic = True
-    try:
-        plain = metrics_cli(cfg, xp_dir, data_dir, nt_test, KTH_VIDEOS,
-                            N_SAMPLES, ())
-        full = metrics_cli(cfg, xp_dir, data_dir, nt_test, KTH_VIDEOS,
-                           N_SAMPLES, metric_flags)
-    finally:
-        torch.backends.cudnn.deterministic = False
+    # the two runs held bit-equal: test_main takes cuDNN's deterministic
+    # algorithms (under its defaults the decode differs from run to run by
+    # up to 1.2e-7, scripts/eval_determinism.py, which can flip the best
+    # of near-tied samples)
+    plain = metrics_cli(cfg, xp_dir, data_dir, nt_test, KTH_VIDEOS,
+                        N_SAMPLES, ())
+    full = metrics_cli(cfg, xp_dir, data_dir, nt_test, KTH_VIDEOS,
+                       N_SAMPLES, metric_flags)
     arts_p, arts_m, fvd_cli = plain[0], full[0], full[3]
     differ = sorted(
         [f"results.{k}" for k, v in arts_p["results"].items()
@@ -2822,6 +2865,399 @@ def metrics_runs(lpips_dir, i3d_path):
     return summary
 
 
+# the serving phase (18): the generation program exported as one artifact
+# (srvp_tpu_torch/export.py) at full width with seeded weights, the conv
+# kernels scaled by SERVING_CONV_GAIN: (name, configuration, compute
+# dtype, pinned batch or None for a symbolic one, the device it is
+# exported on). The pinned artifact is exported on the CPU and served on
+# the card
+SERVING_EXPORTS = [
+    ("dcgan float32", XP_CONFIG, torch.float32, None, "cuda"),
+    ("dcgan bfloat16", XP_CONFIG, torch.bfloat16, None, "cuda"),
+    ("kth bfloat16", KTH_CONFIG, torch.bfloat16, None, "cuda"),
+    ("dcgan float32 pinned", XP_CONFIG, torch.float32, 16, "cpu")]
+SERVING_SEED = 3
+SERVING_BATCHES, SERVING_ITERS = [1, 16, 128], 10
+SERVING_TOOL_VIDEOS = 4
+# a fresh init decodes every pixel to about 127; with the conv kernels
+# scaled by these gains the frames have structure and do not saturate
+# (a larger gain saturates them, KTH's first). The checks require both
+# (SERVING_MIN_STD, SERVING_MAX_SATURATED) and that another seed changes
+# the prediction (SERVING_SEED_SHARE), so that a wrong kernel shows
+SERVING_CONV_GAIN = {"dcgan": 3.0, "vgg": 2.0}
+SERVING_MIN_STD, SERVING_MAX_SATURATED = 0.05, 0.5
+SERVING_SEED_SHARE = 0.25
+# kernels against the plain versions on the same noise: the latent states
+# at the rollout check's RTOL and ATOL; in float32 the frames before
+# quantisation within one uint8 level (eval_path's)
+SERVING_FRAME_ATOL = 1.0 / 255.0
+# the same artifact on the CPU and on the card, in a child process that
+# imports load_serving alone: argv is the artifact, the frames' npy file
+SERVING_CHILD = """
+import json, sys
+import numpy as np
+import torch
+from srvp_tpu_torch.export import load_serving
+x = np.load(sys.argv[2])
+out = {dev: load_serving(sys.argv[1], dev)[0](x, 3).cpu().numpy()
+       for dev in ("cpu", "cuda")}
+d = np.abs(out["cpu"].astype(np.int16) - out["cuda"])
+print("serving_child " + json.dumps(dict(
+    max_u8_diff=int(d.max()), frac_pixels_differ=float((d > 0).mean()),
+    shape=list(out["cpu"].shape),
+    model_modules=sorted(m for m in sys.modules
+                         if m.startswith("srvp_tpu_torch.models")))))
+"""
+
+
+def structured(state_dict, archi):
+    """A state dict with its conv kernels scaled by SERVING_CONV_GAIN (as
+    tests/torch_port_util.jax_model's conv_gain scales them)."""
+    gain = SERVING_CONV_GAIN[archi]
+    return {k: v * gain if v.dim() == 4 else v
+            for k, v in state_dict.items()}
+
+
+def serving_frames(cfg, n_videos, seed):
+    """uint8 (nt_cond, B, 64, 64, 1) conditioning frames of the synthetic
+    test set of cfg's dataset."""
+    nt_cond = cfg["nt_cond"]
+    if cfg["dataset"] == "kth":
+        v = synthetic_kth_videos(n_videos, nt_cond, cfg["nx"],
+                                 np.random.RandomState(seed))
+        v = v.transpose(1, 0, 2, 3)
+    else:
+        v = synthetic_sequences(n_videos, nt_cond, cfg["nx"], seed)
+    return torch.from_numpy(np.ascontiguousarray(v[..., None]))
+
+
+def serving_artifact(root, name, cfg, dtype, batch, device):
+    """Exports one entry of SERVING_EXPORTS on `device` and loads it on the
+    card: (fn, header, live serving core on the card, path, export seconds,
+    bytes, call_function nodes of the program, of them srvp ops)."""
+    torch.manual_seed(SEED + 40)
+    model = SRVP(model_config(cfg)).cuda().eval()
+    model.load_state_dict(structured(model.state_dict(), cfg["archi"]))
+    nt_gen, o = cfg["seq_len_test"], cfg["n_euler_steps"]
+    t0 = time.perf_counter()
+    blob = sexport.export_serving(
+        model.cfg, copy.deepcopy(model).to(device), cfg["nt_cond"], nt_gen,
+        oversampling=o, compute_dtype=dtype, batch_size=batch)
+    export_s = time.perf_counter() - t0
+    path = root / (name.replace(" ", "_") + ".srvptex")
+    sexport.save_serving(path, blob)
+    fn, header = sexport.load_serving(path, "cuda")
+    core = sexport.make_serving_fn(model.cfg, model, nt_gen, oversampling=o,
+                                   compute_dtype=dtype)
+    ep = torch.export.load(io.BytesIO(blob[sexport.read_header(blob)[1]:]))
+    calls = [n for n in ep.graph.nodes if n.op == "call_function"]
+    nodes = (len(calls), sum(getattr(n.target, "namespace", "") == "srvp"
+                             for n in calls))
+    del ep, calls
+    print(f"serving export {name} on {device}: {len(blob)} bytes, "
+          f"{export_s:.3f} s, batch {header['batch']} (at most "
+          f"{header['max_batch']}), {nodes[0]} call_function nodes, "
+          f"{nodes[1]} of them srvp ops", flush=True)
+    return fn, header, core, path, export_s, len(blob), nodes
+
+
+def plain_core(core, dtype):
+    """A copy of the serving core in `dtype` with the plain pools and
+    upsamples (its predict then takes use_kernel_rollout=False)."""
+    plain = sexport.make_serving_fn(core.model.cfg, core.model, core.nt_gen,
+                                    oversampling=core.oversampling,
+                                    compute_dtype=dtype)
+    krspatial.use_kernels(plain.model, False)
+    return plain
+
+
+def serving_check(name, cfg, dtype, fn, core):
+    """At each of SERVING_BATCHES, on the same frames, seed and noise,
+    cuDNN deterministic: the artifact against the live serving core, bit
+    for bit in fp32, one uint8 level in bf16; the core against the plain
+    versions (plain rollout, pools and upsamples): the latent states at
+    RTOL and ATOL, the frames before quantisation in fp32 within
+    SERVING_FRAME_ATOL (and the artifact's uint8 frames within one level
+    of the plain ones), in bf16 no farther from the plain bf16 frames than
+    those are from the plain fp32 ones (L2); the launches of a call, equal
+    to the live core's, kernel 1 once and at vgg kernels 4 and 6 on every
+    pool and upsample; frames with structure, not saturated; the same seed
+    twice, and another seed that changes a share of the predicted pixels.
+    Returns the rows."""
+    nt_cond = cfg["nt_cond"]
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    vgg = 4 if cfg["archi"] == "vgg" else 0
+    plain = plain_core(core, dtype)
+    plain32 = plain_core(core, torch.float32) if sfx else None
+    xs = serving_frames(cfg, max(SERVING_BATCHES), SEED + 41).cuda()
+    seed = torch.tensor(SERVING_SEED, device="cuda")
+    rows = []
+    for b in SERVING_BATCHES:
+        x = xs[:, :b]
+        klaunches.reset()
+        got = fn(x, seed)
+        art = klaunches.counts()
+        with torch.no_grad(), cudnn_deterministic():
+            eps = core.noise(seed, b, nt_cond)
+            klaunches.reset()
+            lat = core.latents(x, eps)
+            live = core.decode_frames(*lat)
+            live_counts = klaunches.counts()
+            lat_p = plain.latents(x, eps, use_kernel_rollout=False)
+            ref = plain.decode_frames(*lat_p)
+            ref32 = (plain32.predict(x, eps, use_kernel_rollout=False)
+                     if sfx else ref)
+        expect_launches(f"serving {name} batch {b}, artifact", art, {
+            "prior_rollout": 1, "maxpool_fwd" + sfx: vgg,
+            "upsample_fwd" + sfx: vgg})
+        expect_launches(f"serving {name} batch {b}, live core", live_counts,
+                        art)
+        live_u8 = torch.round(live * 255.0).to(torch.uint8)
+        d = (got.int() - live_u8.int()).abs()
+        d_plain = (got.int() - torch.round(ref32 * 255.0).int()).abs()
+        again, other = fn(x, seed), fn(x, SERVING_SEED + 1)
+        row = dict(case=name, batch=b,
+                   max_u8_diff_live=int(d.max()),
+                   frac_pixels_differ_live=float((d > 0).float().mean()),
+                   latent_err_over_tol=float(((lat[1] - lat_p[1]).abs()
+                                              / (ATOL + RTOL
+                                                 * lat_p[1].abs())).max()),
+                   max_abs_err_plain=float((live - ref).abs().max()),
+                   max_u8_diff_plain_fp32=int(d_plain.max()),
+                   pred_std=float(live[nt_cond:].std()),
+                   saturated=float(((got[nt_cond:] == 0)
+                                    | (got[nt_cond:] == 255)).float().mean()),
+                   launches={k: v for k, v in art.items() if v},
+                   same_seed_same_bits=bool(torch.equal(got, again)),
+                   other_seed_share_differ=float(
+                       (got[nt_cond:] != other[nt_cond:]).float().mean()))
+        if sfx:
+            row["dist_plain_bf16"] = distance(live, ref, ref32)
+            row["dist_plain_bf16_fp32"] = distance(ref, ref32, ref32)
+        print("serving_check " + json.dumps(row), flush=True)
+        close = (row["max_abs_err_plain"] <= SERVING_FRAME_ATOL
+                 and row["max_u8_diff_plain_fp32"] <= 1 if not sfx else
+                 row["dist_plain_bf16"] <= row["dist_plain_bf16_fp32"])
+        if (row["max_u8_diff_live"] > (1 if sfx else 0) or not close
+                or row["latent_err_over_tol"] > 1.0
+                or row["pred_std"] < SERVING_MIN_STD
+                or row["saturated"] > SERVING_MAX_SATURATED
+                or not row["same_seed_same_bits"]
+                or row["other_seed_share_differ"] < SERVING_SEED_SHARE):
+            raise SystemExit(f"serving {name}: {row}")
+        rows.append(row)
+    del plain, plain32
+    return rows
+
+
+def distance(a, b, ref):
+    """||a - b|| / ||ref|| in float64 (tests/test_torch_bf16.py's)."""
+    a, b, ref = (v.double() for v in (a, b, ref))
+    return float((a - b).norm() / ref.norm())
+
+
+def serving_profile(fn, x, seed):
+    """One call of a loaded artifact under torch.profiler after a warm
+    one: its device events (kernels and copies) and their summed device
+    time (one stream, so they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(x, seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(x, seed)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.device_time_total > 0]
+    return dict(device_events=len(dev),
+                device_busy_ms=sum(e.device_time_total for e in dev) / 1e3)
+
+
+def serving_tools(root):
+    """generate and swap (the CLIs, in this process) at full dcgan width on
+    a synthetic test set of SERVING_TOOL_VIDEOS videos: shapes, GIFs, swap's
+    diagonal equal to generate's sample 0 and to the serving core, exact
+    launch counts."""
+    xp_dir, data_dir = seeded_xp(XP_CONFIG, "serving-dcgan",
+                                 SERVING_TOOL_VIDEOS,
+                                 XP_CONFIG["seq_len_test"], SEED + 42)
+    # the conv kernels scaled (SERVING_CONV_GAIN): at a fresh init the
+    # grid's cells would not differ
+    weights = torch.load(xp_dir / "model.pt", weights_only=True)
+    torch.save(structured(weights, XP_CONFIG["archi"]), xp_dir / "model.pt")
+    n, nt_gen = SERVING_TOOL_VIDEOS, XP_CONFIG["seq_len_test"]
+    flags = ["--xp_dir", str(xp_dir), "--data_dir", str(data_dir),
+             "--model_name", "model.pt", "--n_videos", str(n)]
+    gifs = root / "gifs"
+    t0 = time.perf_counter()
+    klaunches.reset()
+    sgenerate.main(flags + ["--n_samples", "2", "--seed", str(SEED),
+                            "--out", str(root / "samples.npz"),
+                            "--gif_dir", str(gifs)])
+    gen_counts = klaunches.counts()
+    seed0 = counter_rng.fold_in(SEED, 0)
+    klaunches.reset()
+    sswap.main(flags + ["--seed", str(seed0), "--out",
+                        str(root / "swap.npz"), "--gif",
+                        str(root / "grid.gif")])
+    swap_counts = klaunches.counts()
+    tools_s = time.perf_counter() - t0
+    expect_launches("generate", gen_counts, {"prior_rollout": 2})
+    expect_launches("swap", swap_counts, {"prior_rollout": 1})
+    samples = np.load(root / "samples.npz")["samples"]
+    grid = np.load(root / "swap.npz")["grid"]
+    # the serving core itself, on generate's frames and seed 0
+    args = sgenerate.create_args().parse_args(flags)
+    core, _, x_cond, nt_cond, _ = sgenerate.serving_core(args)
+    with torch.no_grad(), cudnn_deterministic():
+        eps = core.noise(torch.tensor(seed0, device="cuda"), n, nt_cond)
+        pred = sgenerate.to_u8(core.predict(x_cond, eps)).transpose(0, 1)
+    diag = np.stack([grid[i, i] for i in range(n)])
+    row = dict(samples=list(samples.shape), grid=list(grid.shape),
+               gifs=len(list(gifs.glob("*.gif"))),
+               grid_gif_bytes=(root / "grid.gif").stat().st_size,
+               diagonal_is_generate=bool(np.array_equal(diag, samples[0])),
+               diagonal_is_core=bool(np.array_equal(diag,
+                                                    pred.cpu().numpy())),
+               off_diagonal_differs=bool(np.any(grid[0, 1] != grid[0, 0])),
+               seconds=tools_s)
+    print("serving_tools " + json.dumps(row), flush=True)
+    if (row["samples"] != [2, n, nt_gen, 64, 64, 1]
+            or row["grid"] != [n, n, nt_gen, 64, 64, 1]
+            or row["gifs"] != 2 * n or not row["diagonal_is_generate"]
+            or not row["diagonal_is_core"]
+            or not row["off_diagonal_differs"]):
+        raise SystemExit(f"serving tools: {row}")
+    return row
+
+
+def serving_path():
+    """Phase 18: the serving export (SERVING_EXPORTS) on the card against
+    the live serving core and the plain versions at SERVING_BATCHES,
+    kernel 1 against its plain version at those batches, the same file on
+    the CPU, the CPU-exported artifact on the card, launches, seeds,
+    batches, the pinned batch, bench_serving's latencies on the dcgan and
+    KTH bf16 artifacts with a profiled call, and the generate and swap
+    tools. Returns the summary."""
+    strict_fp32()
+    root = WORK_DIR / "serving"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    arts, checks, rollouts = {}, {}, []
+    for name, cfg, dtype, batch, device in SERVING_EXPORTS:
+        fn, header, core, path, export_s, size, nodes = serving_artifact(
+            root, name, cfg, dtype, batch, device)
+        arts[name] = dict(fn=fn, header=header, path=path, device=device,
+                          export_s=export_s, bytes=size, nodes=nodes[0],
+                          srvp_nodes=nodes[1])
+        if batch is None:
+            checks[name] = serving_check(name, cfg, dtype, fn, core)
+        if name in ("dcgan float32", "kth bfloat16"):
+            # kernel 1 against its plain version at the serving batches,
+            # their launch plans, the configuration's horizon
+            o, m = cfg["n_euler_steps"], core.model
+            for b in SERVING_BATCHES:
+                rollouts.append(check_rollout(
+                    f"serving {cfg['dataset']} B={b}", m.p_z.linears(),
+                    m.dynamics.linears(), b,
+                    o * (cfg["seq_len_test"] - cfg["nt_cond"]), o, m.cfg.ny,
+                    m.cfg.nz, SEED + 44 + b))
+        del core
+    # one symbolic artifact at batches 1, 16 and 128; the pinned one,
+    # exported on the CPU, at its batch (the same bits, kernel 1 once) and
+    # not at another
+    sym, pinned = arts["dcgan float32"]["fn"], \
+        arts["dcgan float32 pinned"]["fn"]
+    x = serving_frames(XP_CONFIG, max(SERVING_BATCHES), SEED + 43).cuda()
+    nt_gen = XP_CONFIG["seq_len_test"]
+    shapes = {b: list(sym(x[:, :b], 1).shape) for b in SERVING_BATCHES}
+    klaunches.reset()
+    pinned_out = pinned(x[:, :16], 1)
+    pinned_counts = klaunches.counts()
+    expect_launches("serving, the CPU-exported artifact on the card",
+                    pinned_counts, {"prior_rollout": 1})
+    same_pinned = torch.equal(pinned_out, sym(x[:, :16], 1))
+    try:
+        pinned(x[:, :8], 1)
+        pinned_refuses = False
+    except ValueError:
+        pinned_refuses = True
+    if any(s != [nt_gen, b, 64, 64, 1] for b, s in shapes.items()) \
+            or not same_pinned or not pinned_refuses:
+        raise SystemExit(f"serving batches {shapes}, pinned same bits "
+                         f"{same_pinned}, refuses batch 8 {pinned_refuses}")
+    # the fp32 dcgan file on the CPU and on the card, in a child process
+    x2 = root / "x2.npy"
+    np.save(x2, x[:, :2].cpu().numpy())
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVING_CHILD,
+         str(arts["dcgan float32"]["path"]), str(x2)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=CHILD_TIMEOUT_S)
+    child = next((json.loads(ln.split(" ", 1)[1])
+                  for ln in proc.stdout.splitlines()
+                  if ln.startswith("serving_child ")), None)
+    if proc.returncode or child is None:
+        print(proc.stdout[-3000:] + proc.stderr[-3000:], flush=True)
+        raise SystemExit(f"serving child failed (rc {proc.returncode})")
+    print("serving_cpu_vs_card " + json.dumps(child), flush=True)
+    if child["max_u8_diff"] > 1 or child["model_modules"] \
+            or child["shape"] != [nt_gen, 2, 64, 64, 1]:
+        raise SystemExit(f"serving: the file on the CPU and the card "
+                         f"{child}")
+    # bench_serving's timing of the bf16 artifacts; after both, one
+    # profiled call at the smallest and the largest batch (no timing runs
+    # after a profiler session)
+    device = torch.device("cuda")
+    served = (("dcgan bfloat16", "smmnist-dcgan", XP_CONFIG),
+              ("kth bfloat16", "kth-vgg", KTH_CONFIG))
+    latency = {}
+    for name, config, _ in served:
+        art = arts[name]
+        latency[config] = dict(
+            artifact_bytes=art["bytes"], export_s=art["export_s"],
+            nodes=art["nodes"], srvp_nodes=art["srvp_nodes"],
+            **sbench.time_artifact(art["fn"], art["header"],
+                                   SERVING_BATCHES, SERVING_ITERS, device,
+                                   config))
+    for name, config, cfg in served:
+        xb = serving_frames(cfg, max(SERVING_BATCHES), SEED + 45).cuda()
+        for b in (min(SERVING_BATCHES), max(SERVING_BATCHES)):
+            r = latency[config]["batches"][str(b)]
+            prof = serving_profile(arts[name]["fn"], xb[:, :b], SERVING_SEED)
+            prof["device_idle_share_at_p50"] = max(
+                0.0, 1.0 - prof["device_busy_ms"]
+                / r["device_latency_p50_ms"])
+            r["profiled_call"] = prof
+    # KTH at batch 1 timed again after the profiler sessions, beside the
+    # reading before them
+    again = sbench.time_artifact(arts["kth bfloat16"]["fn"],
+                                 arts["kth bfloat16"]["header"], [1],
+                                 SERVING_ITERS, device, "kth-vgg")
+    print("serving_after_profiler " + json.dumps(dict(
+        kth_batch1_p50_ms_before=latency["kth-vgg"]["batches"]["1"][
+            "device_latency_p50_ms"],
+        kth_batch1_p50_ms_after=again["batches"]["1"][
+            "device_latency_p50_ms"])), flush=True)
+    print("serving_latency " + json.dumps(dict(
+        nvidia_smi=nvidia_smi_line(), iters=SERVING_ITERS,
+        configs=latency)), flush=True)
+    tools = serving_tools(root)
+    summary = dict(
+        exports={k: dict(bytes=v["bytes"], export_s=v["export_s"],
+                         device=v["device"], nodes=v["nodes"])
+                 for k, v in arts.items()},
+        checks=checks, rollouts=rollouts, batches=shapes,
+        pinned_refuses=pinned_refuses, cpu_vs_card=child, latency=latency,
+        tools=tools, seconds=time.perf_counter() - t_phase)
+    del arts
+    torch.cuda.empty_cache()
+    print(f"serving phase: {summary['seconds']:.1f} s", flush=True)
+    return summary
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                bound_ms, bound_by, library_ms=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2888,12 +3324,14 @@ def main():
     spatial = check_spatial(KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"], SEED + 10)
     spatial_bf16 = check_spatial(KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"],
                                  SEED + 13, torch.bfloat16)
-    summary = eval_path(XP_CONFIG, N_VIDEOS, XP_CONFIG["seq_len_test"], SEED)
+    summary = eval_path(XP_CONFIG, N_VIDEOS, XP_CONFIG["seq_len_test"], SEED,
+                        default_algos=True)
     train_summary = train_path(
         XP_CONFIG, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCH, TRAIN_BATCH,
         WORK_DIR / "data_smmnist-dcgan", XP_CONFIG["seq_len_test"],
         parity.KINK_MARGIN, DCGAN_STEP_HELD)
-    kth_summary = eval_path(KTH_CONFIG, KTH_VIDEOS, KTH_NT_GEN, SEED)
+    kth_summary = eval_path(KTH_CONFIG, KTH_VIDEOS, KTH_NT_GEN, SEED,
+                            default_algos=True)
     kth_train = train_path(
         KTH_CONFIG, KTH_TRAIN_STEPS, KTH_TRAIN_WARMUP, KTH_TRAIN_BATCH,
         KTH_CHECK_VIDEOS, WORK_DIR / "data_kth-vgg", KTH_NT_GEN,
@@ -2948,15 +3386,26 @@ def main():
     t0 = time.perf_counter()
     met = metrics_path()
     print(f"metrics phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the serving export: the generation program as one artifact through
+    # kernels 1, 4 and 6, the tools on its serving core
+    torch.cuda.empty_cache()
+    served = serving_path()
+    # launches of one call at each checked batch, over the symbolic
+    # artifacts
+    served_counts = {}
+    for rows in served["checks"].values():
+        for k, v in rows[0]["launches"].items():
+            served_counts[k] = served_counts.get(k, 0) + v
 
     src = "srvp_tpu_torch/csrc/rollout_train.cu"
     kernels = [
-        kernel_row("prior_rollout", "srvp_tpu_torch/csrc/rollout.cu",
-                   "srvp_tpu/ops/pallas/rollout.py:89",
-                   summary["launches"]["prior_rollout"],
-                   main_row["max_abs_err"], main_row["ms"],
-                   main_row["plain_ms"], main_row["bound_ms"],
-                   main_row["bound_by"]),
+        dict(kernel_row("prior_rollout", "srvp_tpu_torch/csrc/rollout.cu",
+                        "srvp_tpu/ops/pallas/rollout.py:89",
+                        summary["launches"]["prior_rollout"],
+                        main_row["max_abs_err"], main_row["ms"],
+                        main_row["plain_ms"], main_row["bound_ms"],
+                        main_row["bound_by"]),
+             serving_launches=served_counts["prior_rollout"]),
         kernel_row("train_rollout_fwd", src,
                    "srvp_tpu/ops/pallas/rollout_train.py:83",
                    train_summary["launches"]["train_rollout_fwd"],
@@ -2983,6 +3432,9 @@ def main():
                 train["launches"][name + sfx], row["max_abs_err"], row["ms"],
                 row["plain_ms"], row["bound_ms"], row["bound_by"],
                 row["library_ms"]))
+            if name.endswith("_fwd"):
+                kernels[-1]["serving_launches"] = served_counts.get(
+                    name + sfx, 0)
     for name, line, check, counted in (
             ("conv3x3_block_fwd", "srvp_tpu/ops/pallas/conv_stage.py:50",
              "block float32", "conv3x3_block"),
@@ -3068,6 +3520,19 @@ def main():
           f"{met['bair']['s_per_batch']:.3f} s per batch of "
           f"{METRICS_BAIR_VIDEOS} x {METRICS_BAIR_SAMPLES} samples with both",
           flush=True)
+    for what, ev in (("dcgan", summary), ("kth", kth_summary)):
+        print(f"{what} evaluation (phase {6 if what == 'dcgan' else 8}): "
+              f"{ev['s_per_batch_kernel']:.3f} s per batch under cuDNN's "
+              f"deterministic algorithms, {ev['s_per_batch_default_algos']:.3f}"
+              f" under its defaults", flush=True)
+    for config, lat in served["latency"].items():
+        for b, r in lat["batches"].items():
+            print(f"serving {config} bf16 batch {b}: device p50 "
+                  f"{r['device_latency_p50_ms']:.3f} ms (p95 "
+                  f"{r['device_latency_p95_ms']:.3f}), end to end p50 "
+                  f"{r['latency_p50_ms']:.3f} ms (p95 "
+                  f"{r['latency_p95_ms']:.3f}), {r['frames_per_sec']:.1f} "
+                  f"frames/s", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

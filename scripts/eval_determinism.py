@@ -3,7 +3,7 @@
 runs again, on one GPU, and which of its stages do not.
 
     python scripts/eval_determinism.py [--config kth-vgg|smmnist-dcgan]
-        [--seed 0]
+        [--seed 0] [--time_rounds N]
 
 Runs the stages of `srvp_tpu_torch.eval_lib.compute_chunk` (encode, w,
 the z-LSTM, the rollouts through kernel 1, the decode, the clipped
@@ -14,13 +14,20 @@ cuDNN's default algorithms, again after other allocations, then twice with
 torch.backends.cudnn.deterministic, and twice under
 torch.use_deterministic_algorithms. Prints one JSON line: for each pair,
 the stages that differ and their largest absolute difference (an empty
-object: bit-equal), with the card's name and power limit. Needs CUDA.
+object: bit-equal), with the card's name and power limit. With
+--time_rounds N it also times eval_lib.compute_chunk (the evaluation's
+chunk, host clock closed by torch.cuda.synchronize) under cuDNN's
+deterministic algorithms and under its defaults, in turns (deterministic
+first in even rounds, the defaults first in odd ones), N chunks each
+after one of each as warm-up, and prints their median ms and ranges.
+Needs CUDA.
 """
 
 import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -48,6 +55,7 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", choices=sorted(CONFIGS), default="kth-vgg")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--time_rounds", type=int, default=0)
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("eval_determinism: CUDA is not available")
@@ -115,8 +123,32 @@ def main():
     alg = stages()
     res["deterministic_algorithms_again"] = differ(alg, stages())
     torch.use_deterministic_algorithms(False)
+    timing = chunk_ms(lambda: eval_lib.compute_chunk(
+        model, x_cond, x_target, SAMPLES, o, o, eps), args.time_rounds)
     print(json.dumps(dict(config=args.config, videos=VIDEOS, samples=SAMPLES,
-                          device=nvidia_smi_line(), differ=res)), flush=True)
+                          device=nvidia_smi_line(), differ=res,
+                          chunk_ms=timing)), flush=True)
+
+
+def chunk_ms(chunk, rounds):
+    """{"deterministic", "default"}: median, min and max ms of `chunk`
+    under each cuDNN setting, timed in turns over `rounds` rounds."""
+    if not rounds:
+        return None
+    ms = {True: [], False: []}
+    for r in range(-1, rounds):
+        for det in ((True, False) if r % 2 == 0 else (False, True)):
+            torch.backends.cudnn.deterministic = det
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunk()
+            torch.cuda.synchronize()
+            if r >= 0:
+                ms[det].append(1e3 * (time.perf_counter() - t0))
+    torch.backends.cudnn.deterministic = False
+    return {("deterministic" if det else "default"): dict(
+        median=float(np.median(v)), min=min(v), max=max(v))
+        for det, v in ms.items()}
 
 
 if __name__ == "__main__":

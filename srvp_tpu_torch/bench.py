@@ -75,7 +75,8 @@ import numpy as np
 import torch
 
 from srvp_tpu_torch import train_lib
-from srvp_tpu_torch.config import SRVPConfig, resolve_device, strict_fp32
+from srvp_tpu_torch.config import (SRVPConfig, cudnn_deterministic,
+                                   resolve_device, strict_fp32)
 from srvp_tpu_torch.kernels import peaks
 from srvp_tpu_torch.models.srvp import SRVP
 
@@ -200,11 +201,7 @@ def golden_loss_step2(name, args, device):
     deterministic algorithms)."""
     c = config(name, args.tiny)
     c["batch"] = min(c["batch"], GOLDEN_VIDEOS)
-    deterministic = torch.backends.cudnn.deterministic
-    benchmark = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
-        True, False)
-    try:
+    with cudnn_deterministic():
         ts, hp = _train_state(c, torch.float32, device)
         x = torch.from_numpy(make_batch(config(name, args.tiny))[:, :c["batch"]])
         x = x.to(device)
@@ -212,9 +209,6 @@ def golden_loss_step2(name, args, device):
         for _ in range(2):
             metrics = train_lib.train_step(ts, x, hp, generator=gen)
         return float(metrics["loss"])
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-        torch.backends.cudnn.benchmark = benchmark
 
 
 def check_golden_losses(per_config, args, device, kind):

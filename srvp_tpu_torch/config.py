@@ -1,5 +1,6 @@
-"""Model hyperparameters and device selection."""
+"""Model hyperparameters, device selection and the numerics switches."""
 
+import contextlib
 import dataclasses
 
 import torch
@@ -54,3 +55,32 @@ def strict_fp32():
     would break float32 parity with it (cuDNN convs default to TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """strict_fp32's settings for the body, the previous ones after it."""
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = [f.allow_tf32 for f in flags]
+    strict_fp32()
+    try:
+        yield
+    finally:
+        for f, b in zip(flags, before):
+            f.allow_tf32 = b
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, without autotuning, for the body;
+    the previous settings after it. The evaluation and the serving tools
+    run under it, as the JAX package is deterministic on its chip: under
+    the default algorithms the same decode differs from run to run on an
+    H100 (by up to 1.2e-7, scripts/eval_determinism.py; PERF.md)."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = before

@@ -78,6 +78,24 @@ def sample_rollout(model, hx, hx_z, n_samples, nt_gen, o_inf, o_gen, eps,
     return gen_inf.y, gen.y
 
 
+def sample_latents(model, x_cond, n_samples, nt_gen, o_inf, o_gen, eps,
+                   use_kernel_rollout=True, compute_dtype=None):
+    """The conditioning work of a chunk, then its samples' latent states:
+    encode x_cond (nt_cond, B, H, W, C) in compute_dtype (default: its
+    own), w and the z-LSTM in x_cond's dtype, then sample_rollout. Returns
+    (w (B, nh_inf) in compute_dtype, y_inf, y_gen as sample_rollout gives
+    them, the encoder's skips or None). compute_chunk and the serving core
+    (export.ServingModule, at S = 1) both run it."""
+    compute_dtype = compute_dtype or x_cond.dtype
+    hx, skips = model.encode(x_cond.to(compute_dtype))
+    hx = hx.to(x_cond.dtype)
+    w = model.infer_w(hx)
+    hx_z = lstm_apply(model.inf_z, hx)
+    y_inf, y_gen = sample_rollout(model, hx, hx_z, n_samples, nt_gen, o_inf,
+                                  o_gen, eps, use_kernel_rollout)
+    return w.to(compute_dtype), y_inf, y_gen, skips
+
+
 @torch.no_grad()
 def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
                   use_kernel_rollout=True, compute_dtype=None, lpips_fn=None):
@@ -90,16 +108,10 @@ def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
     """
     bsz = x_cond.shape[1]
     compute_dtype = compute_dtype or x_cond.dtype
-    # deterministic conditioning work, computed once per chunk
-    hx, skips = model.encode(x_cond.to(compute_dtype))
-    hx = hx.to(x_cond.dtype)
-    w = model.infer_w(hx)
-    hx_z = lstm_apply(model.inf_z, hx)
-    y_inf, y_gen = sample_rollout(model, hx, hx_z, n_samples,
-                                  x_target.shape[0] + 1, o_inf, o_gen, eps,
-                                  use_kernel_rollout)
+    w_c, y_inf, y_gen, skips = sample_latents(
+        model, x_cond, n_samples, x_target.shape[0] + 1, o_inf, o_gen, eps,
+        use_kernel_rollout, compute_dtype)
     # conditioning reconstruction of sample 0 only: rows b*S + 0
-    w_c = w.to(compute_dtype)
     x_rec = model.decode(w_c, y_inf[:, ::n_samples].to(compute_dtype),
                          skips).float()
     skips_f = (None if skips is None

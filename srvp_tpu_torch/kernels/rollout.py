@@ -12,8 +12,10 @@ widths) a substep, from L2. `cluster_plan` picks R and C for a batch,
 `pack_layout` lays out each rank's slice of every weight. See the source for
 the design.
 
-`prior_rollout` launches the kernel for CUDA tensors and runs
-`prior_rollout_reference` for CPU tensors; it raises for anything else.
+`prior_rollout` runs the custom op `srvp::prior_rollout` (kernels/ops.py),
+whose CUDA implementation `launch_prior_rollout` launches the kernel and
+whose CPU implementation is `prior_rollout_reference`; it raises for any
+other device.
 """
 
 import ctypes
@@ -257,16 +259,28 @@ def prior_rollout(pz_layers, dyn_layers, y0, eps, ny, nz, oversampling=1,
                   plan=None):
     """Prior rollout; same arguments and result as prior_rollout_reference.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel with
-    `plan` (a Plan; by default cluster_plan's for the batch). It raises if
-    the card cannot schedule the plan's cluster.
+    It runs the custom op `srvp::prior_rollout` (kernels/ops.py), which
+    takes the plain version for CPU tensors and launches the kernel for CUDA
+    tensors with `plan` (a Plan; by default cluster_plan's for the batch).
+    It raises for another device, and if the card cannot schedule the
+    plan's cluster.
     """
-    global launches
-    if y0.device.type == "cpu":
-        return prior_rollout_reference(pz_layers, dyn_layers, y0, eps, ny, nz,
-                                       oversampling)
-    if y0.device.type != "cuda":
+    if y0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"prior_rollout: unsupported device {y0.device}")
+    from srvp_tpu_torch.kernels import ops
+    rows, cluster = (plan.rows, plan.cluster) if plan else (0, 0)
+    return ops.prior_rollout(
+        [w for w, _ in pz_layers], [b for _, b in pz_layers],
+        [w for w, _ in dyn_layers], [b for _, b in dyn_layers], y0, eps,
+        ny, nz, oversampling, rows, cluster)
+
+
+def launch_prior_rollout(pz_layers, dyn_layers, y0, eps, ny, nz,
+                         oversampling, plan=None):
+    """The CUDA implementation of `srvp::prior_rollout`: checks the
+    tensors, launches the kernel with `plan` (cluster_plan's when None) on
+    the current stream and adds one to `launches`."""
+    global launches
     device = y0.device
     n_steps, bsz = eps.shape[0], y0.shape[0]
     _check("y0", y0, (bsz, ny), device)

@@ -21,8 +21,11 @@ versions:
     order (g[2i,2j] + g[2i+1,2j]) + (g[2i,2j+1] + g[2i+1,2j+1]), with one
     rounding at the store.
 
-`max_pool2x2` and `upsample2x` run their autograd.Function: for CUDA
-tensors it launches the kernels, for CPU tensors it runs the plain versions.
+`max_pool2x2` and `upsample2x` run their autograd.Function, whose forward is
+the custom op `srvp::max_pool2x2` or `srvp::upsample2x` (kernels/ops.py)
+and whose backward calls `max_pool2x2_bwd` or `upsample2x_bwd`: for CUDA
+tensors they launch the kernels, for CPU tensors they run the plain
+versions.
 Any other input raises: another device, a dtype other than float32 or
 bfloat16, not 4-D, or (pool) an odd height or width.
 """
@@ -122,11 +125,10 @@ def _launch(kernel, tensors, rows, cols):
     launches[kernel, dtype] += 1
 
 
-def _pool_fwd(x):
-    """x: dense on CUDA (see MaxPool2x2.forward)."""
-    if not x.is_cuda:
-        return max_pool2x2_reference(x)
+def pool_fwd_cuda(x):
+    """The CUDA implementation of `srvp::max_pool2x2` (kernel 4)."""
     n, c, h, w = x.shape
+    x = _dense(x)
     m = torch.empty((n, c, h // 2, w // 2), device=x.device, dtype=x.dtype)
     if m.numel():
         _launch("pool_fwd", (x, m), n * c * (h // 2), w // 2)
@@ -152,9 +154,8 @@ def max_pool2x2_bwd(x, m, g):
     return gx
 
 
-def _up_fwd(x):
-    if not x.is_cuda:
-        return upsample2x_reference(x)
+def up_fwd_cuda(x):
+    """The CUDA implementation of `srvp::upsample2x` (kernel 6)."""
     n, c, h, w = x.shape
     x = _dense(x)
     y = torch.empty((n, c, 2 * h, 2 * w), device=x.device, dtype=x.dtype)
@@ -183,9 +184,8 @@ class MaxPool2x2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        if x.is_cuda:
-            x = _dense(x)
-        m = _pool_fwd(x)
+        from srvp_tpu_torch.kernels import ops
+        m = ops.max_pool2x2(x)
         ctx.save_for_backward(x, m)
         return m
 
@@ -201,7 +201,8 @@ class Upsample2x(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        return _up_fwd(x)
+        from srvp_tpu_torch.kernels import ops
+        return ops.upsample2x(x)
 
     @staticmethod
     def backward(ctx, g):

@@ -82,7 +82,12 @@ _INDICES = {}
 def _take(t, idx):
     """t[idx] for a numpy index array, the index kept on t's device after
     its first use: a host index would be copied to the card on every call,
-    which a CUDA graph cannot capture (train_lib.WindowStep)."""
+    which a CUDA graph cannot capture (train_lib.WindowStep). Under
+    torch.compile or torch.export the index becomes a constant of the
+    traced program instead, and the cache is neither read nor written (it
+    must not hold a traced tensor)."""
+    if torch.compiler.is_compiling():
+        return t[torch.as_tensor(idx, dtype=torch.long, device=t.device)]
     key = (idx.tobytes(), t.device)
     if key not in _INDICES:
         _INDICES[key] = torch.as_tensor(idx, dtype=torch.long,

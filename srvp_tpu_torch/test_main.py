@@ -20,7 +20,9 @@ from that directory) as a third metric, lower is better, with its
 `lpips_best` / `lpips_worst` archives; --fvd prints the FVD of the
 conditioning + ground-truth videos against the conditioning + first
 sample ones (I3D, metrics/fvd.py; the weights from SRVP_TPU_I3D_WEIGHTS,
-checked before sampling). Both run on the model's device.
+checked before sampling). Both run on the model's device. The sampling
+runs under cuDNN's deterministic algorithms (config.cudnn_deterministic):
+the same checkpoint, data and --test_seed give the same bits.
 """
 
 import argparse
@@ -31,7 +33,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from srvp_tpu_torch.config import model_config, resolve_device
+from srvp_tpu_torch.config import (cudnn_deterministic, model_config,
+                                   resolve_device)
 from srvp_tpu_torch.data.base import load_dataset
 from srvp_tpu_torch.data.loader import dataset_batches
 from srvp_tpu_torch.data.mmnist_test import iterate_batches, load_test_sequences
@@ -136,11 +139,12 @@ def main(opt):
     print("Evaluation...")
     generator = torch.Generator(device=device)
     generator.manual_seed(opt.test_seed)
-    results, samples, cond, gt, batch_seconds = run_test(
-        model, batches, nt_cond, nt_test,
-        opt.n_samples, opt.samples_chunk, generator, o_inf, o_gen,
-        pad_to=opt.batch_size, use_kernel_rollout=opt.fused_rollout != "off",
-        lpips_fn=lpips_fn)
+    with cudnn_deterministic():
+        results, samples, cond, gt, batch_seconds = run_test(
+            model, batches, nt_cond, nt_test,
+            opt.n_samples, opt.samples_chunk, generator, o_inf, o_gen,
+            pad_to=opt.batch_size,
+            use_kernel_rollout=opt.fused_rollout != "off", lpips_fn=lpips_fn)
 
     fvd_value = None
     if opt.fvd:

@@ -1,7 +1,8 @@
 """The PyTorch port imports neither jax nor srvp_tpu, nor PIL (its PNG
-frames go through its own decoder), its evaluation metrics (LPIPS, I3D,
-FVD) included, and its entry points refuse CUDA where there is none
-instead of falling back to the CPU."""
+frames go through its own decoder, its GIFs through its own writer), its
+evaluation metrics (LPIPS, I3D, FVD) and its serving export and tools
+included, and its entry points refuse CUDA where there is none instead of
+falling back to the CPU."""
 
 import os
 import subprocess
@@ -31,7 +32,11 @@ SCRIPT = textwrap.dedent("""
     assert {"srvp_tpu_torch.bench", "srvp_tpu_torch.data.png",
             "srvp_tpu_torch.data.bair", "srvp_tpu_torch.data.human",
             "srvp_tpu_torch.metrics.lpips", "srvp_tpu_torch.metrics.i3d",
-            "srvp_tpu_torch.metrics.fvd"} <= set(names)
+            "srvp_tpu_torch.metrics.fvd", "srvp_tpu_torch.export",
+            "srvp_tpu_torch.generate", "srvp_tpu_torch.swap",
+            "srvp_tpu_torch.bench_serving", "srvp_tpu_torch.kernels.ops",
+            "srvp_tpu_torch.ops.counter_rng",
+            "srvp_tpu_torch.utils.gif"} <= set(names)
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401  (its helpers; main() is not run)
