@@ -215,6 +215,30 @@ Phases, each of which fails the script:
      generate and swap CLIs at full dcgan width on 4 synthetic videos
      (shapes, GIFs, the swap grid's diagonal equal to generate's sample 0
      and to the serving core, exact launches).
+ 19. main path, data parallelism (data_parallel_path; srvp_tpu_torch/
+     parallel): the trainer CLI as child processes, cuDNN deterministic,
+     dcgan fp32 at full width (batch 128 x 15, 8 steps, a validation). (a)
+     Through a process group of one rank under NCCL (--coordinator_address
+     localhost:<port> --num_processes 1 --process_id 0; each run alone on
+     the card): its logged losses and model.pt bit-equal to the run
+     without the flags, ms per step of both printed; then at
+     --steps_per_dispatch 4 under NCCL, bit-equal to K = 1 (the gradient
+     all-reduce captured in the window's graph). (b) Two ranks on the one
+     card under gloo (--device cuda:0; NCCL refuses two ranks on one
+     device): dcgan fp32 at the global batch 128 (kernels 2-3 at B = 64 a
+     rank), rank 0's losses within rtol 1e-4 / atol 1e-6 of the run
+     without a group and its model.pt within that tolerance in L2 norm a
+     tensor (the element-wise reading printed beside a control's: one
+     process under cuDNN's default algorithms), rank 1 printing no log
+     line; KTH vgg bf16 at the global batch 100 for 3 steps, finite losses
+     (one process's printed beside); every rank's
+     launches of kernels 2-7 exact; kernels 2-3 held against their plain
+     versions at B = 64 (check_train_rollout); the ranks' ms per step
+     printed as gloo on one card, not a speed figure. (c) Phase 6's dcgan
+     evaluation through test_main --n_devices 2 --device cuda:0 (two
+     spawned gloo ranks) against one rank, child processes: every result
+     and artifact bit-equal, or within the rank-count tolerance (one uint8
+     level, metrics rtol 1e-5) with the tensors that differ printed.
 test_main runs under cuDNN's deterministic algorithms; phases 6 and 8 run
 its kernel evaluation once more under cuDNN's defaults and print the s per
 batch of both.
@@ -233,6 +257,7 @@ import json
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -248,8 +273,8 @@ from srvp_tpu_torch import bench_serving as sbench
 from srvp_tpu_torch import export as sexport
 from srvp_tpu_torch import generate as sgenerate
 from srvp_tpu_torch import swap as sswap
-from srvp_tpu_torch import (bench, bench_conv_stage, test_main, train_lib,
-                            train_main)
+from srvp_tpu_torch import (bench, bench_conv_stage, eval_lib, test_main,
+                            train_lib, train_main)
 from srvp_tpu_torch.config import (cudnn_deterministic, model_config,
                                    strict_fp32)
 from srvp_tpu_torch.data.device_compose import materialize, to_device
@@ -266,6 +291,7 @@ from srvp_tpu_torch.kernels import spatial as krspatial
 from srvp_tpu_torch.metrics import fvd as mfvd
 from srvp_tpu_torch.metrics import i3d as mi3d
 from srvp_tpu_torch.metrics import lpips as mlpips
+from srvp_tpu_torch.metrics.ssim import video_ssim
 from srvp_tpu_torch.models.conv import decoder_spec, encoder_spec, stage_module
 from srvp_tpu_torch.models.lstm import lstm_apply
 from srvp_tpu_torch.models.mlp import MLP
@@ -2006,11 +2032,11 @@ class TrainerChild:
     CHILD_TIMEOUT_S) and returns (exit code, output lines, the child's
     kernel launch counts and native generator batches, seconds)."""
 
-    def __init__(self, argv, stop_after=None):
+    def __init__(self, argv, stop_after=None, script=TRAINER_CHILD):
         self.argv, self.stop_after, self.lines = argv, stop_after, []
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", TRAINER_CHILD, *argv], cwd=ROOT,
+            [sys.executable, "-c", script, *argv], cwd=ROOT,
             env=dict(os.environ, PYTHONPATH=str(ROOT)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self.reader = threading.Thread(target=self._read, daemon=True)
@@ -2233,24 +2259,33 @@ def ulp_distance(a, b):
     return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
 
 
-def model_distance(ref_path, got_path):
-    """(max |got - ref| over model.pt's floats, its largest distance in
-    ulps, the worst |got - ref| / (TRAIN_ATOL + TRAIN_RTOL |ref|), the
-    tensors whose bits differ)."""
+def model_distance(ref_path, got_path, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+    """model.pt against a reference: the tensors whose bits differ; over
+    the floats, the largest |got - ref|, its largest distance in ulps, the
+    worst |got - ref| / (atol + rtol |ref|) and the elements past 1 of it;
+    and the worst ||got - ref|| / (atol sqrt(n) + rtol ||ref||) over the
+    tensors (L2 norms), with that tensor's name."""
     ref, got = torch.load(ref_path), torch.load(got_path)
-    worst = dict(abs=0.0, ulps=0, ratio=0.0, differ=0)
+    worst = dict(abs=0.0, ulps=0, ratio=0.0, differ=0, past=0,
+                 norm_ratio=0.0, worst_tensor=None)
     for k in ref:
         if torch.equal(ref[k], got[k]):
             continue
         worst["differ"] += 1
         if not ref[k].is_floating_point():
             worst["ratio"] = float("inf")   # a count that differs
+            worst["norm_ratio"] = float("inf")
             continue
-        d = (got[k].double() - ref[k].double()).abs()
+        r = ref[k].double()
+        d = (got[k].double() - r).abs()
+        elem = d / (atol + rtol * r.abs())
+        norm = float(d.norm() / (atol * r.numel() ** 0.5 + rtol * r.norm()))
         worst["abs"] = max(worst["abs"], float(d.max()))
         worst["ulps"] = max(worst["ulps"], ulp_distance(ref[k], got[k]))
-        worst["ratio"] = max(worst["ratio"], float(
-            (d / (TRAIN_ATOL + TRAIN_RTOL * ref[k].double().abs())).max()))
+        worst["ratio"] = max(worst["ratio"], float(elem.max()))
+        worst["past"] += int((elem > 1).sum())
+        if norm > worst["norm_ratio"]:
+            worst["norm_ratio"], worst["worst_tensor"] = norm, k
     return worst
 
 
@@ -3258,6 +3293,396 @@ def serving_path():
     return summary
 
 
+# the data-parallel phase (19): the trainer and test_main through
+# torch.distributed (srvp_tpu_torch/parallel). Arm (a): dcgan fp32 at full
+# width through a process group of one rank under NCCL, against the run
+# without one, and at --steps_per_dispatch 4 (the all-reduce captured in
+# the window's graph); arm (b): two ranks on the one card under gloo (NCCL
+# refuses two ranks on one device), dcgan fp32 at the global batch of (a)
+# and KTH bf16; arm (c): phase 6's evaluation at --n_devices 2. The ranks'
+# losses against one process's at DP_RTOL / DP_ATOL (tests/test_multihost.py
+# :270-281: the gradient all-reduce and the batch sums add in another
+# order). Their model.pt is held against the controls': one process under
+# cuDNN's default (non-deterministic) algorithms, whose reductions too add
+# in another order, run DP_CONTROLS times. After 8 steps a control reads
+# 586 of that tolerance element by element and 3.2 in L2 norm (H100 80GB
+# HBM3, 700 W; PERF.md): 8 Adam steps at full width do not keep the
+# weights within it under another summation order, while the losses stay
+# 1e-3 of it. So the ranks' model.pt must lie within DP_CONTROL_FACTOR of
+# the farther control in L2 norm a tensor (the element-wise readings
+# printed)
+DP_STEPS, DP_K, DP_KTH_STEPS = 8, 4, 3
+DP_FLAGS = ["--n_workers", "4", "--log_interval", "4"]
+DP_RTOL, DP_ATOL = 1e-4, 1e-6
+DP_RANKS, DP_CONTROLS, DP_CONTROL_FACTOR = 2, 2, 2.0
+# the control's trainer: TRAINER_CHILD under cuDNN's default algorithms
+DEFAULT_ALGOS_CHILD = TRAINER_CHILD.replace(
+    "torch.backends.cudnn.deterministic = True",
+    "torch.backends.cudnn.deterministic = False")
+
+
+def free_port():
+    """A TCP port of this host that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def group_flags(ranks, rank, port):
+    """The trainer's flags of rank `rank` of an explicit group of
+    `ranks`; more than one rank shares cuda:0 (and so gloo)."""
+    flags = ["--coordinator_address", f"localhost:{port}",
+             "--num_processes", str(ranks), "--process_id", str(rank)]
+    return flags + (["--device", "cuda:0"] if ranks > 1 else [])
+
+
+def rows_distance(ref_rows, rows):
+    """The worst |loss - ref| / (DP_ATOL + DP_RTOL |ref|) over the logged
+    steps (which must be the same), and whether every loss is bit-equal."""
+    if [r["step"] for r in rows] != [r["step"] for r in ref_rows]:
+        raise SystemExit(f"logged steps {[r['step'] for r in rows]} against "
+                         f"{[r['step'] for r in ref_rows]}")
+    ratio = max(abs(b["loss"] - a["loss"])
+                / (DP_ATOL + DP_RTOL * abs(a["loss"]))
+                for a, b in zip(ref_rows, rows))
+    return ratio, all(a["loss"] == b["loss"] for a, b in zip(ref_rows, rows))
+
+
+def eval_rows_probe(device="cuda"):
+    """Phase 6's dcgan chunk (16 videos x 10 samples, seeded weights and
+    inputs) on the card under cuDNN's deterministic algorithms, at one
+    rank's rows (all 16 videos) against rank 1's 8 alone, step by step on
+    the same inputs: whether each step of the evaluation gives the same
+    bits for those rows at the other row count."""
+    cfg = model_config(XP_CONFIG)
+    torch.manual_seed(SEED)
+    model = SRVP(cfg).to(device).eval()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    nt_cond, nt = XP_CONFIG["nt_cond"], XP_CONFIG["seq_len_test"]
+    x = torch.rand(nt, BATCH, 64, 64, 1, generator=gen, device=device)
+    eps = eval_lib.chunk_noise(cfg, BATCH, CHUNK, nt_cond, nt, 1, 1, gen,
+                               device)
+    vids, rows = slice(BATCH // 2, BATCH), slice(BATCH // 2 * CHUNK,
+                                                 BATCH * CHUNK)
+    eps_half = (eps[0][rows], eps[1][:, rows], eps[2][:, rows])
+    same = {}
+    with torch.no_grad(), cudnn_deterministic():
+        hx, _ = model.encode(x[:nt_cond])
+        same["encoder (cuDNN convs)"] = torch.equal(
+            hx[:, vids], model.encode(x[:nt_cond, vids])[0])
+        w = model.infer_w(hx)
+        same["infer_w (nn.Linear, cuBLAS)"] = torch.equal(
+            w[vids], model.infer_w(hx[:, vids]))
+        # each step of sample_latents on the whole batch's inputs to it
+        hx_z = lstm_apply(model.inf_z, hx)
+        same["z-LSTM (cuDNN LSTM)"] = torch.equal(
+            hx_z[:, vids], lstm_apply(model.inf_z, hx[:, vids]))
+        hx_f = eval_lib.fold(hx, CHUNK, 1)[:cfg.nt_inf]
+        y_0 = model.infer_y(hx_f, eps[0])[0]
+        same["infer_y (nn.Linear MLP)"] = torch.equal(
+            y_0[rows], model.infer_y(hx_f[:, rows], eps_half[0])[0])
+        hx_zf = eval_lib.fold(hx_z, CHUNK, 1)
+        y_inf = model.generate(y_0, None, nt_cond, eps_pos=eps[1],
+                               hx_z=hx_zf).y
+        same["posterior rollout (eager, nn.Linear)"] = torch.equal(
+            y_inf[:, rows], model.generate(y_0[rows], None, nt_cond,
+                                           eps_pos=eps_half[1],
+                                           hx_z=hx_zf[:, rows]).y)
+        y_gen = model.generate_prior(y_inf[-1], nt - nt_cond + 1,
+                                     eps=eps[2]).y
+        same["prior rollout (kernel 1)"] = torch.equal(
+            y_gen[:, rows], model.generate_prior(
+                y_inf[-1, rows], nt - nt_cond + 1, eps=eps_half[2]).y)
+        whole = eval_lib.sample_latents(model, x[:nt_cond], CHUNK,
+                                        nt - nt_cond + 1, 1, 1, eps)
+        half = eval_lib.sample_latents(model, x[:nt_cond, vids], CHUNK,
+                                       nt - nt_cond + 1, 1, 1, eps_half)
+        same["latents (all of sample_latents)"] = torch.equal(
+            whole[2][:, rows], half[2])
+        w_f = eval_lib.fold(whole[0], CHUNK, 0)
+        pred = model.decode(w_f, whole[2][1:], None).float()
+        same["decoder (cuDNN convTs, first nn.Linear)"] = torch.equal(
+            pred[:, rows], model.decode(w_f[rows], whole[2][1:, rows],
+                                        None).float())
+        target = eval_lib.fold(x[nt_cond:], CHUNK, 1)
+        same["SSIM (depthwise F.conv2d, means)"] = torch.equal(
+            video_ssim(pred, target)[:, rows],
+            video_ssim(pred[:, rows], target[:, rows]))
+    return {k: bool(v) for k, v in same.items()}
+
+
+def dp_ms_per_step(rows, frames):
+    """ms per step of the last logged row (its window of steps)."""
+    return 1e3 * frames / rows[-1]["fps"]
+
+
+def dp_children(runs):
+    """TrainerChild of each (name, argv[, script]) at once; their results
+    by name."""
+    children = [(name, TrainerChild(*run)) for name, *run in runs]
+    return {name: child.result() for name, child in children}
+
+
+def dp_check_child(name, result, want_rc, opt, n_steps, n_vals):
+    """Exit status and exact launches of one trainer child (a rank)."""
+    rc, lines, counts, _ = result
+    if rc != want_rc:
+        print("\n".join(lines[-40:]), flush=True)
+        raise SystemExit(f"data parallel, {name}: exit status {rc}")
+    expect_launches(f"data parallel, {name}", counts["launches"],
+                    train_launches(opt, n_steps, n_vals))
+    return counts["launches"]
+
+
+def test_main_child(xp_dir, data_dir, extra, log):
+    """test_main on the dcgan protocol of phase 6 in a child process with
+    cuDNN deterministic (test_main's own), killed after CHILD_TIMEOUT_S."""
+    argv = [sys.executable, "-m", "srvp_tpu_torch.test_main", "--xp_dir",
+            str(xp_dir), "--data_dir", str(data_dir), "--batch_size",
+            str(BATCH), "--n_samples", str(N_SAMPLES), "--samples_chunk",
+            str(CHUNK), "--nt_gen", str(XP_CONFIG["seq_len_test"]),
+            "--model_name", "model.pt", *extra]
+    with open(log, "w") as out:
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    return proc
+
+
+def wait_child(proc, log, what):
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    if rc != 0:
+        print(Path(log).read_text()[-4000:], flush=True)
+        raise SystemExit(f"data parallel, {what}: exit status {rc}")
+
+
+def data_parallel_path():
+    """Phase 19 (the module docstring). Returns its summary."""
+    t_phase = time.perf_counter()
+    data = WORK_DIR / "data_smmnist-dcgan"
+    kdata = WORK_DIR / "data_kth-vgg"
+    for d in (data, kdata):
+        d.mkdir(parents=True, exist_ok=True)
+    if not (kdata / "packed_64").exists():
+        write_kth_packed_tree(kdata, KTH_CONFIG["nx"], SEED + 4)
+    controls = [f"control{c}" for c in range(DP_CONTROLS)]
+    dirs = {k: WORK_DIR / f"dp_{k}" for k in [
+        "plain", "nccl", "nccl_k4", "gloo2_dcgan", "gloo2_kth", "kth"]
+        + controls}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+
+    def argv(kind, *extra, cfg=XP_CONFIG, n_steps=DP_STEPS,
+             batch_size=TRAIN_BATCH, precision="float32"):
+        return (train_argv(str(dirs[kind]), str(kdata if cfg is KTH_CONFIG
+                                                 else data), n_steps,
+                           cfg=cfg, batch_size=batch_size,
+                           precision=precision) + DP_FLAGS + list(extra))
+    kth = dict(cfg=KTH_CONFIG, n_steps=DP_KTH_STEPS,
+               batch_size=KTH_TRAIN_BATCH, precision="bfloat16")
+    opt = train_main.create_args().parse_args(argv("plain"))
+    kopt = train_main.create_args().parse_args(argv("gloo2_kth", **kth))
+    # (a), each run alone on the card (their ms per step are compared)
+    runs = dp_children([("plain", argv("plain"))])
+    runs.update(dp_children([("nccl", argv("nccl",
+                                          *group_flags(1, 0, free_port())))]))
+    # (a) at K = 4, (b) and the controls side by side; then (b) at KTH
+    # beside one process (together about 50 GB) and (c)
+    port_d, port_k = free_port(), free_port()
+    runs.update(dp_children(
+        [("nccl_k4", argv("nccl_k4", *group_flags(1, 0, free_port()),
+                          "--steps_per_dispatch", str(DP_K)))]
+        + [(c, argv(c), None, DEFAULT_ALGOS_CHILD) for c in controls]
+        # rank 1 writes nothing: its save path is rank 0's
+        + [(f"gloo2_dcgan_{r}", argv("gloo2_dcgan", *group_flags(
+            DP_RANKS, r, port_d))) for r in range(DP_RANKS)]))
+    # (c) phase 6's evaluation, one rank against two, beside the KTH wave
+    xp_dir, data_dir = seeded_xp(XP_CONFIG, "smmnist-dcgan", N_VIDEOS,
+                                 XP_CONFIG["seq_len_test"], SEED)
+    evals = {}
+    for k, extra in (("one", []), ("two", ["--n_devices", str(DP_RANKS),
+                                           "--device", "cuda:0"])):
+        d = WORK_DIR / f"dp_eval_{k}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(xp_dir, d)
+        evals[k] = (d, WORK_DIR / f"dp_eval_{k}.log",)
+        evals[k] += (test_main_child(d, data_dir, extra, evals[k][1]),)
+    try:
+        runs.update(dp_children(
+            [("kth", argv("kth", "--log_interval", "1", **kth))]
+            + [(f"gloo2_kth_{r}", argv("gloo2_kth", *group_flags(
+                DP_RANKS, r, port_k), "--log_interval", "1", **kth))
+               for r in range(DP_RANKS)]))
+        for k, (d, log, proc) in evals.items():
+            wait_child(proc, log, f"test_main {k}")
+    finally:
+        for _, _, proc in evals.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    launches = {}
+    for name in ["plain", "nccl", "nccl_k4"] + controls + [
+            f"gloo2_dcgan_{r}" for r in range(DP_RANKS)]:
+        launches[name] = dp_check_child(name, runs[name], 0, opt, DP_STEPS, 1)
+    for name in ("kth",) + tuple(f"gloo2_kth_{r}" for r in range(DP_RANKS)):
+        launches[name] = dp_check_child(name, runs[name], 0, kopt,
+                                        DP_KTH_STEPS, 1)
+    for name, backend in (("nccl", "1 ranks, cpu:gloo,cuda:nccl"),
+                          ("nccl_k4", "1 ranks, cpu:gloo,cuda:nccl"),
+                          ("gloo2_dcgan_0", "2 ranks, gloo"),
+                          ("gloo2_kth_0", "2 ranks, gloo")):
+        if not any(backend in line for line in runs[name][1]):
+            raise SystemExit(f"data parallel, {name}: no '{backend}' group")
+
+    rows = {k: training_rows(d) for k, d in dirs.items()}
+    frames = TRAIN_BATCH * XP_CONFIG["seq_len"]
+    a_losses = rows_distance(rows["plain"], rows["nccl"])
+    a_model = model_distance(dirs["plain"] / "model.pt",
+                             dirs["nccl"] / "model.pt")
+    k_losses = rows_distance(rows["nccl"], rows["nccl_k4"])
+    k_model = model_distance(dirs["nccl"] / "model.pt",
+                             dirs["nccl_k4"] / "model.pt")
+    b_losses = rows_distance(rows["plain"], rows["gloo2_dcgan"])
+    b_model = model_distance(dirs["plain"] / "model.pt",
+                             dirs["gloo2_dcgan"] / "model.pt", DP_RTOL,
+                             DP_ATOL)
+    c_losses = [rows_distance(rows["plain"], rows[c])[0] for c in controls]
+    c_models = [model_distance(dirs["plain"] / "model.pt",
+                               dirs[c] / "model.pt", DP_RTOL, DP_ATOL)
+                for c in controls]
+    floor = max(m["norm_ratio"] for m in c_models)
+    kth_losses = [r["loss"] for r in rows["gloo2_kth"]]
+    kth_one_losses = [r["loss"] for r in rows["kth"]]
+    for r in range(1, DP_RANKS):
+        if any(line.startswith(f"[{DP_STEPS}/")
+               for line in runs[f"gloo2_dcgan_{r}"][1]):
+            raise SystemExit("data parallel: rank 1 printed a log line")
+
+    # kernels 2-3 at the rank's shape (B = 64), against the plain version
+    cfg = model_config(XP_CONFIG)
+    torch.manual_seed(SEED)
+    model = SRVP(cfg).cuda().eval()
+    rank_row = check_train_rollout(
+        "per-rank training step", (model.q_z.weight, model.q_z.bias),
+        model.p_z.linears(), model.dynamics.linears(),
+        TRAIN_BATCH // DP_RANKS, XP_CONFIG["seq_len"] - 1, 1, SEED + 19)
+    del model
+
+    probe = eval_rows_probe()
+    if "2 ranks, gloo" not in evals["two"][1].read_text():
+        raise SystemExit("data parallel: test_main --n_devices 2 made no "
+                         "group of 2 ranks")
+    names = ["results", "cond_rec"] + [
+        f"{m}_{w}" for m in ("psnr", "ssim") for w in ("best", "worst")] \
+        + [f"random_{i}" for i in range(1, 6)]
+    eval_diff = dict(bit_equal=True, max_u8=0, max_rel=0.0, differ={})
+    for name in names:
+        ref, got = (np.load(evals[k][0] / f"{name}.npz")
+                    for k in ("one", "two"))
+        for f in ref.files:
+            a, b = ref[f], got[f]
+            if a.shape != b.shape or a.shape[0] != N_VIDEOS:
+                raise SystemExit(f"data parallel, {name}:{f}: {b.shape} "
+                                 f"against {a.shape}")
+            if np.array_equal(a, b):
+                continue
+            eval_diff["bit_equal"] = False
+            eval_diff["differ"][f"{name}:{f}"] = int(np.sum(a != b))
+            if a.dtype == np.uint8:
+                eval_diff["max_u8"] = max(eval_diff["max_u8"], int(
+                    np.abs(a.astype(np.int16) - b).max()))
+            else:
+                eval_diff["max_rel"] = max(eval_diff["max_rel"], float(
+                    (np.abs(a - b) / np.abs(a)).max()))
+
+    kth_frames = KTH_TRAIN_BATCH * KTH_CONFIG["seq_len"]
+    summary = dict(
+        steps=DP_STEPS, k=DP_K, launches=launches,
+        nccl_world1=dict(losses_bit_equal=a_losses[1],
+                         model_pt_tensors_differ=a_model["differ"],
+                         ms_per_step=dp_ms_per_step(rows["nccl"], frames),
+                         plain_ms_per_step=dp_ms_per_step(rows["plain"],
+                                                          frames)),
+        nccl_k4=dict(losses_bit_equal=k_losses[1],
+                     model_pt_tensors_differ=k_model["differ"],
+                     ms_per_step=dp_ms_per_step(rows["nccl_k4"], frames)),
+        gloo2_dcgan=dict(loss_ratio=b_losses[0], model=b_model,
+                         ms_per_step=dp_ms_per_step(rows["gloo2_dcgan"],
+                                                    frames)),
+        controls_default_algos=dict(loss_ratios=c_losses, models=c_models,
+                                    model_limit=DP_CONTROL_FACTOR * floor),
+        gloo2_kth_bf16=dict(losses=kth_losses, ms_per_step=dp_ms_per_step(
+            rows["gloo2_kth"], kth_frames), one_process_losses=kth_one_losses,
+            one_process_ms_per_step=dp_ms_per_step(rows["kth"], kth_frames)),
+        rows_probe=probe,
+        rank_rollout=dict(B=rank_row["B"], fwd_ms=rank_row["kernel_fwd_ms"],
+                          bwd_ms=rank_row["kernel_bwd_ms"],
+                          fwd_max_abs_err=rank_row["fwd_max_abs_err"],
+                          bwd_max_abs_err=rank_row["bwd_max_abs_err"]),
+        evaluation=eval_diff, seconds=time.perf_counter() - t_phase)
+    print("data_parallel_path " + json.dumps(summary), flush=True)
+    a, k4, b = (summary[k] for k in ("nccl_world1", "nccl_k4",
+                                      "gloo2_dcgan"))
+    same = {k: v["losses_bit_equal"] and not v["model_pt_tensors_differ"]
+            for k, v in (("a", a), ("k4", k4))}
+    print(f"data parallel (a): NCCL at one rank "
+          f"{'bit-equal' if same['a'] else 'DIFFERS'}"
+          f" to the run without a group, {a['ms_per_step']:.3f} against "
+          f"{a['plain_ms_per_step']:.3f} ms per step (each alone on the "
+          f"card); K={DP_K} under NCCL "
+          f"{'bit-equal' if same['k4'] else 'DIFFERS'}"
+          f" to K=1, {k4['ms_per_step']:.3f} ms per step (beside (b)'s "
+          f"ranks)", flush=True)
+    bm = b["model"]
+    controls_read = "; ".join(
+        f"losses {lr:.4f}, L2 {m['norm_ratio']:.4f}, element by element "
+        f"{m['ratio']:.1f} ({m['past']} past, at most {m['abs']:.3e} "
+        f"apart)" for lr, m in zip(c_losses, c_models))
+    print(f"data parallel (b): 2 gloo ranks on one card (not a speed "
+          f"figure): dcgan fp32 losses {b['loss_ratio']:.4f} of rtol "
+          f"{DP_RTOL} / atol {DP_ATOL} from one process, model.pt "
+          f"{bm['norm_ratio']:.4f} of it in L2 norm ({bm['worst_tensor']}; "
+          f"limit {DP_CONTROL_FACTOR * floor:.4f}); element by element "
+          f"{bm['ratio']:.1f} ({bm['past']} elements past it, at most "
+          f"{bm['abs']:.3e} apart); the controls, one process under "
+          f"cuDNN's default algorithms: {controls_read}; "
+          f"{b['ms_per_step']:.3f} ms per "
+          f"step; KTH bf16 losses {kth_losses} (one process "
+          f"{kth_one_losses}), "
+          f"{summary['gloo2_kth_bf16']['ms_per_step']:.3f} ms per step (one "
+          f"process {summary['gloo2_kth_bf16']['one_process_ms_per_step']:.3f}"
+          f", side by side); kernels 2-3 at B={rank_row['B']}: forward "
+          f"{rank_row['kernel_fwd_ms']:.4f} ms, backward "
+          f"{rank_row['kernel_bwd_ms']:.4f} ms", flush=True)
+    print(f"data parallel (c): test_main at 2 gloo ranks "
+          f"{'bit-equal' if eval_diff['bit_equal'] else 'differs'} to one "
+          f"rank (max {eval_diff['max_u8']} uint8 levels, metrics "
+          f"{eval_diff['max_rel']:.3e} relative; {eval_diff['differ']}); "
+          f"at 16 videos against rank 1's 8 alone, the same bits: "
+          f"{probe}; "
+          f"phase {summary['seconds']:.1f} s", flush=True)
+    if not same["a"]:
+        raise SystemExit(f"data parallel (a): NCCL at one rank differs from "
+                         f"the run without a group ({a_losses}, {a_model})")
+    if not same["k4"]:
+        raise SystemExit(f"data parallel (a): K={DP_K} under NCCL differs "
+                         f"from K=1 ({k_losses}, {k_model})")
+    if b["loss_ratio"] > 1 or bm["norm_ratio"] > DP_CONTROL_FACTOR * floor:
+        raise SystemExit(f"data parallel (b): two ranks are not within the "
+                         f"tolerance of one process ({b_losses}, {b_model})")
+    if len(kth_losses) != DP_KTH_STEPS or not np.all(np.isfinite(kth_losses)):
+        raise SystemExit(f"data parallel (b): KTH bf16 losses {kth_losses}")
+    if eval_diff["max_u8"] > 1 or eval_diff["max_rel"] > 1e-5:
+        raise SystemExit(f"data parallel (c): two ranks' evaluation is not "
+                         f"within the rank-count tolerance ({eval_diff})")
+    return summary
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                bound_ms, bound_by, library_ms=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3390,6 +3815,10 @@ def main():
     # kernels 1, 4 and 6, the tools on its serving core
     torch.cuda.empty_cache()
     served = serving_path()
+    # data parallelism: the trainer at one NCCL rank and at two gloo ranks
+    # on the card, test_main at two ranks
+    torch.cuda.empty_cache()
+    data_parallel_path()
     # launches of one call at each checked batch, over the symbolic
     # artifacts
     served_counts = {}

@@ -1,9 +1,9 @@
 """Training CLI flags (counterpart of srvp_tpu/args.py): every flag of the
 JAX trainer with its name, type, default and `required`, `--config FILE`
 included, plus `--fused_rollout`. `--device` is the torch device here (the
-JAX package's `--device` is a list of ints that it ignores). Flags of parts
-that are not ported yet are accepted and rejected by `check_ported`, when
-set away from their defaults, with a pointer to ROADMAP.md. The mixed
+JAX package's `--device` is a list of ints that it ignores). `--n_dcn`, the
+JAX package's 2-D mesh, is accepted and, set away from 1, rejected by
+`check_ported` with its reason (parallel/mesh.check_dcn). The mixed
 precision flags are the JAX trainer's: `--precision bfloat16`,
 `--torch_amp` and `--apex_amp` select bfloat16 compute (`compute_dtype`),
 and the apex options are accepted and ignored."""
@@ -11,6 +11,7 @@ and the apex options are accepted and ignored."""
 import torch
 
 from srvp_tpu_torch import configlib
+from srvp_tpu_torch.parallel import mesh
 
 ARCH_TYPES = ["dcgan", "vgg"]
 DATASETS = ["smmnist", "kth", "human", "bair"]
@@ -27,7 +28,7 @@ def _nonneg_int(value):
 def create_args():
     p = configlib.ArgumentParser(
         prog="Stochastic Latent Residual Video Prediction (training, GPU)",
-        description="Trains SRVP on one GPU (PyTorch/CUDA).")
+        description="Trains SRVP on one GPU or several (PyTorch/CUDA).")
     p.add_argument("--seed", type=int, metavar="SEED", default=None,
                    help="Manual seed. If None, it is chosen randomly.")
     p.add_argument("--save_path", type=str, metavar="PATH", required=True,
@@ -62,19 +63,31 @@ def create_args():
     amp_p.add_argument("--apex_verbose", action="store_true",
                        help="Accepted for compatibility; ignored.")
 
-    g = p.add_argument_group("Not ported yet (ROADMAP.md)")
+    g = p.add_argument_group(
+        "Several cards",
+        "Data parallelism, one process a card (parallel/): the global "
+        "batch split over the ranks, global batch statistics, gradients "
+        "averaged; rank 0 writes.")
     g.add_argument("--n_devices", type=int, metavar="NB", default=None,
-                   help="Only 1 is ported: training runs on one card.")
+                   help="Ranks: without --coordinator_address the trainer "
+                        "starts NB local ranks itself (rank r on cuda:r).")
     g.add_argument("--local_rank", type=int, metavar="RANK", default=0,
-                   help="Not ported (several cards).")
+                   help="This rank's card on its host: --device cuda is "
+                        "cuda:<local_rank>.")
     g.add_argument("--n_dcn", type=int, metavar="NB", default=1,
-                   help="Not ported (several hosts).")
+                   help="The JAX package's multi-slice mesh; only 1: NCCL "
+                        "has no such axis.")
     g.add_argument("--coordinator_address", type=str, metavar="ADDR",
-                   default=None, help="Not ported (several hosts).")
+                   default=None,
+                   help="Join a process group: host:port with "
+                        "--num_processes and --process_id, or 'auto' to "
+                        "read torchrun's environment.")
     g.add_argument("--num_processes", type=int, metavar="NB", default=None,
-                   help="Not ported (several hosts).")
+                   help="Ranks of the group of an explicit "
+                        "--coordinator_address.")
     g.add_argument("--process_id", type=int, metavar="RANK", default=None,
-                   help="Not ported (several hosts).")
+                   help="This process's rank (0..num_processes-1) for an "
+                        "explicit --coordinator_address.")
 
     r = p.add_argument_group("Run control")
     r.add_argument("--steps_per_dispatch", type=int, metavar="K", default=1,
@@ -200,20 +213,9 @@ def create_args():
 
 
 def check_ported(opt):
-    """Raises NotImplementedError for a flag whose part is not ported."""
-    todo = {
-        "--n_devices > 1": opt.n_devices not in (None, 1),
-        "--local_rank": opt.local_rank != 0,
-        "--n_dcn": opt.n_dcn != 1,
-        "--coordinator_address": opt.coordinator_address is not None,
-        "--num_processes": opt.num_processes is not None,
-        "--process_id": opt.process_id is not None,
-    }
-    for flag, asked in todo.items():
-        if asked:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch trainer yet "
-                "(ROADMAP.md, Queue 1)")
+    """Raises ValueError, with its reason, for `--n_dcn` other than 1: the
+    one flag of the JAX trainer that has no meaning on GPUs."""
+    mesh.check_dcn(opt.n_dcn)
 
 
 def compute_dtype(opt):

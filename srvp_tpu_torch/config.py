@@ -39,13 +39,17 @@ def model_config(xp_config):
 
 
 def resolve_device(device="cuda"):
-    """torch.device for an entry point. Asking for CUDA where there is none
-    raises: the port never falls back to the CPU on its own."""
+    """torch.device for an entry point. Asking for CUDA where there is none,
+    or for a card that is not there, raises: the port never falls back to
+    the CPU or to another card on its own."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={device!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and (dev.index or 0) >= torch.cuda.device_count():
+        raise RuntimeError(f"device={device!r} requested but there are "
+                           f"{torch.cuda.device_count()} cards")
     return dev
 
 

@@ -1,5 +1,5 @@
 """Seeded, threaded, prefetching batch loader (counterpart of
-srvp_tpu/data/loader.py, without its process sharding).
+srvp_tpu/data/loader.py).
 
 The epoch order is a permutation seeded by (seed, epoch) and item i of the
 epoch gets its own RandomState(item_seed(i)), so a batch depends only on
@@ -14,7 +14,12 @@ where the collation is collate_uint8, and `get_batch_seeded` the items of
 a batch in one call (Moving MNIST's generator, the PNG decoder; data/
 native.py), each hook `num_workers` threads wide. An exception in the
 producer is raised in the consumer, and closing an iteration ends its
-producer.
+producer. With `shard_rank` and `shard_count` a loader feeds one rank of a
+data-parallel run (parallel/multihost.py): the batch size, the epoch order
+and the item seeds stay the global batch's, and the rank makes only its
+contiguous slice of every batch (`rows`), whose global positions reach the
+item seeds and the batch hooks; so the ranks' slices concatenate bit for
+bit to the unsharded batch.
 """
 
 import queue
@@ -50,7 +55,15 @@ class DataLoader:
     drop_last=True), one epoch per iteration."""
 
     def __init__(self, dataset, batch_size, seed=0,
-                 collate_fn=collate_uint8, num_workers=4, prefetch=PREFETCH):
+                 collate_fn=collate_uint8, num_workers=4, prefetch=PREFETCH,
+                 shard_rank=0, shard_count=1):
+        if not 0 <= shard_rank < shard_count:
+            raise ValueError(f"shard_rank {shard_rank} out of range for "
+                             f"shard_count {shard_count}")
+        if batch_size % shard_count:
+            raise ValueError(f"batch_size {batch_size} must divide evenly "
+                             f"over shard_count {shard_count}")
+        self.shard_rank, self.shard_count = shard_rank, shard_count
         self.dataset = dataset
         self.prefetch = prefetch
         self.batch_size = batch_size
@@ -71,8 +84,15 @@ class DataLoader:
         self.epoch += n_batches // per_epoch
         self._start_batch = n_batches % per_epoch
 
+    def rows(self, b):
+        """(start, stop) positions in the epoch order of this loader's
+        slice of batch b."""
+        per = self.batch_size // self.shard_count
+        lo = b * self.batch_size + self.shard_rank * per
+        return lo, lo + per
+
     def _batch(self, order, epoch, b, pool):
-        lo, hi = b * self.batch_size, (b + 1) * self.batch_size
+        lo, hi = self.rows(b)
         seeds = [item_seed(self.seed, epoch, pos) for pos in range(lo, hi)]
         indices = [int(order[pos]) for pos in range(lo, hi)]
         if self.collate_fn is collate_uint8:

@@ -28,21 +28,26 @@ from srvp_tpu_torch.config import strict_fp32
 from srvp_tpu_torch.metrics.pixel import frame_mse, psnr_from_mse
 from srvp_tpu_torch.metrics.ssim import video_ssim
 from srvp_tpu_torch.models.lstm import lstm_apply
+from srvp_tpu_torch.parallel import mesh, multihost
 
 LOWER_BETTER = {"lpips": True, "psnr": False, "ssim": False}
 
 
 def chunk_noise(cfg, bsz, n_samples, nt_cond, nt_test, o_inf, o_gen,
-                generator, device):
+                generator, device, rows=None):
     """(eps_y, eps_inf, eps_gen) for one chunk, drawn in that order:
     (B*S, ny), (o_inf*(nt_cond-1), B*S, nz), (o_gen*(nt_test-nt_cond), B*S,
-    nz)."""
-    rows = bsz * n_samples
+    nz). `rows` (lo, hi) keeps the noise of videos lo..hi of the B (a
+    rank's slice of the batch: its videos' noise does not depend on the
+    rank count)."""
+    n_rows = bsz * n_samples
+    lo, hi = rows or (0, bsz)
+    keep = slice(lo * n_samples, hi * n_samples)
     draw = lambda *shape: torch.randn(shape, generator=generator,  # noqa: E731
                                       device=device)
-    return (draw(rows, cfg.ny),
-            draw(o_inf * (nt_cond - 1), rows, cfg.nz),
-            draw(o_gen * (nt_test - nt_cond), rows, cfg.nz))
+    return (draw(n_rows, cfg.ny)[keep],
+            draw(o_inf * (nt_cond - 1), n_rows, cfg.nz)[:, keep],
+            draw(o_gen * (nt_test - nt_cond), n_rows, cfg.nz)[:, keep])
 
 
 def _to_u8(x):
@@ -211,9 +216,14 @@ def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
     and the padding is dropped on the host. With `lpips_fn` (on the model's
     device) LPIPS is a third metric.
 
+    At more than one rank (parallel/; the counterpart of run_test_device
+    with a mesh) each rank evaluates its contiguous slice of every padded
+    batch on the global batch's noise (chunk_noise's rows), and rank 0
+    gathers the selection of every rank on the host.
+
     Returns (results {name: (N,) best value per video}, samples {artifact
     name: uint8 array}, cond, gt) like the JAX run_test_device, plus the
-    wall-clock seconds of each batch.
+    wall-clock seconds of each batch; None on the other ranks.
     """
     strict_fp32()
     device = next(model.parameters()).device
@@ -222,6 +232,11 @@ def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
     if n_samples % chunk:
         raise ValueError(f"samples_chunk {chunk} must divide n_samples "
                          f"{n_samples}")
+    rank, count = multihost.process_index(), multihost.process_count()
+    if count > 1 and (pad_to is None or pad_to % count):
+        raise ValueError(f"the {count} ranks must divide the padded batch "
+                         f"(pad_to {pad_to})")
+    primary = multihost.is_primary()
     n_chunks = n_samples // chunk
     n_random = min(5, n_samples)
     t_pred = nt_test - nt_cond
@@ -239,27 +254,34 @@ def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
         if pad_to is not None:
             if real_bsz > pad_to:
                 raise ValueError(f"batch of {real_bsz} > pad_to {pad_to}")
+            x, _ = mesh.pad_to_multiple(x, pad_to)
             bsz = pad_to
-            x = np.pad(x, ((0, 0), (0, bsz - real_bsz))
-                       + ((0, 0),) * (x.ndim - 2), mode="edge")
-        x_dev = torch.from_numpy(x).to(device)
+        lo, hi = multihost.local_batch_slice(bsz, rank, count)
+        x_dev = torch.from_numpy(np.ascontiguousarray(x[:, lo:hi])).to(device)
         x_cond, x_target = x_dev[:nt_cond], x_dev[nt_cond:]
         cond.append(_host_u8(x[:nt_cond, :real_bsz]))
         gt.append(_host_u8(x[nt_cond:, :real_bsz]))
 
-        carry = init_select_carry(metric_names, bsz, t_pred, nt_cond,
+        carry = init_select_carry(metric_names, hi - lo, t_pred, nt_cond,
                                   x.shape[2:], n_random, device)
         for c in range(n_chunks):
             eps = chunk_noise(cfg, bsz, chunk, nt_cond, nt_test, o_inf, o_gen,
-                              generator, device)
+                              generator, device, rows=(lo, hi))
             carry = select_chunk(carry, model, x_cond, x_target, chunk,
                                  c * chunk, o_inf, o_gen, eps,
                                  use_kernel_rollout=use_kernel_rollout,
                                  compute_dtype=compute_dtype,
                                  lpips_fn=lpips_fn)
+        carry = {k: v.cpu().numpy() for k, v in carry.items()}
+        ranks = multihost.gather_to_primary(carry)
+        if not primary:
+            continue
+        # the video axis: 1 for `random`, 0 elsewhere
+        carry = {k: np.concatenate([r[k] for r in ranks],
+                                   axis=int(k == "random"))
+                 for k in carry}
         carry = {k: v[:, :real_bsz] if k == "random" else v[:real_bsz]
                  for k, v in carry.items()}
-        carry = {k: v.cpu().numpy() for k, v in carry.items()}
         cond_rec.append(carry["rec"])
         for r in range(n_random):
             random_samples[r].append(carry["random"][r])
@@ -271,6 +293,8 @@ def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
         print(f"  batch {b_idx + 1} done in {batch_seconds[-1]:.3f} s",
               flush=True)
 
+    if not primary:
+        return None
     samples = {f"random_{i + 1}": np.concatenate(random_samples[i])
                for i in range(n_random)}
     samples["cond_rec"] = np.concatenate(cond_rec)

@@ -13,14 +13,22 @@ casts its weight to the input's dtype where it uses it, and in bfloat16 the
 batch norm takes its statistics in float32 from the upcast input, forms its
 scale and shift in float32 and applies x * scale + shift in bfloat16. An
 input of any other dtype (float32, or float64 for a float64 model) runs
-torch's own batch norm and leaky ReLU unchanged.
+torch's own batch norm and leaky ReLU unchanged, except in training at more
+than one rank (parallel/): there the batch statistics are the global
+batch's in every dtype (SyncBatchNorm's semantics, as a mean over the JAX
+mesh's sharded batch axis is), through `_BatchStats`' reduction over the
+ranks, and x * scale + shift in the input's dtype, its parameter gradients
+summed over the ranks before they are rounded (`_RankAffine`).
 """
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from srvp_tpu_torch.parallel import multihost
 
 BN_EPS = 1e-5
 
@@ -74,48 +82,104 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 class _BatchStats(torch.autograd.Function):
     """Per-channel mean and biased variance of (N, C, H, W) x, in float32
     whatever x's dtype, the variance in two passes as torch's batch norm
-    takes it. Its backward, dx = (g_mean + 2 g_var (x - mean)) / n, is
-    computed in float32 and rounded once to x's dtype; it saves x itself,
-    not a float32 copy."""
+    takes it, and the count n of values a channel. Its backward,
+    dx = (g_mean + 2 g_var (x - mean)) / n, is computed in float32 and
+    rounded once to x's dtype; it saves x itself, not a float32 copy.
+
+    With `sync` the statistics are those of the global batch, over every
+    rank's x: Σx and n are all-reduced (in float64) for the mean, then
+    Σ(x - mean)² for the variance, the same two passes; n is then a float32
+    tensor. In backward g_mean and g_var are all-reduced first: every
+    rank's loss reads the shared statistics, so dx takes the sum of their
+    gradients over the ranks (without it the parameter gradients that the
+    ranks then average would be wrong)."""
 
     @staticmethod
-    def forward(ctx, x):
-        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                   correction=0)
-        ctx.save_for_backward(x, mean)
-        return mean, var
-
-    @staticmethod
-    def backward(ctx, g_mean, g_var):
-        x, mean = ctx.saved_tensors
+    def forward(ctx, x, sync=False):
+        xf = x.float()
         n = x.numel() // x.shape[1]
+        if sync:
+            sums = torch.cat([xf.sum(dim=(0, 2, 3)).double(),
+                              xf.new_tensor([n], dtype=torch.float64)])
+            dist.all_reduce(sums)
+            n = sums[-1].float()
+            mean = (sums[:-1] / sums[-1]).float()
+            d = xf - mean.view(1, -1, 1, 1)
+            var = (d * d).sum(dim=(0, 2, 3))
+            dist.all_reduce(var)
+            var = var / n
+            ctx.mark_non_differentiable(n)
+        else:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        ctx.sync, ctx.n = sync, n
+        ctx.save_for_backward(x, mean)
+        return mean, var, n
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var, _):
+        x, mean = ctx.saved_tensors
+        if ctx.sync:
+            g = torch.cat([g_mean, g_var])
+            dist.all_reduce(g)
+            g_mean, g_var = g.chunk(2)
         shape = (1, -1, 1, 1)
         dx = (g_mean.view(shape)
-              + 2.0 * g_var.view(shape) * (x.float() - mean.view(shape))) / n
-        return dx.to(x.dtype)
+              + 2.0 * g_var.view(shape) * (x.float() - mean.view(shape))) \
+            / ctx.n
+        return dx.to(x.dtype), None
+
+
+class _RankAffine(torch.autograd.Function):
+    """x * scale + shift (per channel, all three in x's dtype) at more than
+    one rank. Its backward sums the scale's and shift's gradients, each
+    rank's sum over its rows accumulated in float32, over the ranks before
+    it rounds them to x's dtype, as one process rounds the whole batch's
+    sum (and as JAX on a mesh does, whose bfloat16 sums accumulate in
+    float32 across the devices); each rank takes 1/N of it, so that the
+    mean of the ranks' parameter gradients (parallel/mesh.
+    all_reduce_grads) is the whole batch's. Rounding each rank's partial
+    sum to bfloat16 first would add a rounding that one process does not
+    make."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift):
+        ctx.save_for_backward(x, scale)
+        return x * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        sums = torch.stack([(g * x).float().sum(dim=(0, 2, 3)),
+                            g.float().sum(dim=(0, 2, 3))])
+        dist.all_reduce(sums)
+        sums = sums.to(scale.dtype) / dist.get_world_size()
+        return g * scale.view(1, -1, 1, 1), sums[0], sums[1]
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d that normalises a bfloat16 input as the JAX package
-    does (module docstring); any other input takes torch's path."""
+    does, and takes the global batch's statistics in training at more than
+    one rank (module docstring); any other input takes torch's path."""
 
     def forward(self, x):
-        if x.dtype != torch.bfloat16:
+        sync = self.training and multihost.process_count() > 1
+        if x.dtype != torch.bfloat16 and not sync:
             return super().forward(x)
         if self.training:
-            mean, var = _BatchStats.apply(x)
-            n = x.numel() // x.shape[1]
+            mean, var, n = _BatchStats.apply(x, sync)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(
-                    m * n / max(n - 1, 1) * var)
+                denom = (n - 1).clamp(min=1) if sync else max(n - 1, 1)
+                self.running_var.mul_(1 - m).add_(m * n / denom * var)
                 self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.reciprocal(torch.sqrt(var + self.eps))
         scale = (self.weight * inv).to(x.dtype)
         shift = (self.bias - self.weight * mean * inv).to(x.dtype)
+        if sync:
+            return _RankAffine.apply(x, scale, shift)
         return x * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
 
 

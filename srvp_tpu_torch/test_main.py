@@ -1,4 +1,5 @@
-"""SRVP evaluation CLI on one GPU (counterpart of the repository's test.py).
+"""SRVP evaluation CLI on one GPU or several (counterpart of the
+repository's test.py).
 
 Loads config.json and a checkpoint from --xp_dir (a JAX `model.npz`
 snapshot, or a reference `.pt` state_dict), runs best/worst-of-N stochastic
@@ -23,6 +24,14 @@ sample ones (I3D, metrics/fvd.py; the weights from SRVP_TPU_I3D_WEIGHTS,
 checked before sampling). Both run on the model's device. The sampling
 runs under cuDNN's deterministic algorithms (config.cudnn_deterministic):
 the same checkpoint, data and --test_seed give the same bits.
+
+`--n_devices N` evaluates on N ranks, one process a card, started here
+(parallel/mesh.spawn; rank r on cuda:r, or every rank on the card that
+`--device cuda:K` names, under gloo): N must divide --batch_size, each
+rank samples its slice of every edge-padded batch on the global batch's
+noise, so a video's samples do not depend on N, LPIPS runs on each rank's
+chunks, and rank 0 gathers the selections, writes the results and the
+artifacts and runs FVD on every video.
 """
 
 import argparse
@@ -42,6 +51,7 @@ from srvp_tpu_torch.eval_lib import run_test
 from srvp_tpu_torch.metrics.fvd import fvd, require_i3d
 from srvp_tpu_torch.metrics.lpips import make_video_lpips
 from srvp_tpu_torch.models.srvp import SRVP
+from srvp_tpu_torch.parallel import mesh, multihost
 from srvp_tpu_torch.utils.weights import load_checkpoint
 
 
@@ -80,7 +90,8 @@ def create_test_args():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path.")
     p.add_argument("--n_devices", type=int, metavar="NB", default=None,
-                   help="Only 1 is supported: evaluation runs on one card.")
+                   help="Ranks (one process a card, started here) that "
+                        "share each batch; must divide --batch_size.")
     p.add_argument("--fvd", action="store_true",
                    help="Whether to compute FVD (I3D weights npz from "
                         "SRVP_TPU_I3D_WEIGHTS).")
@@ -102,11 +113,29 @@ def resolve_nt_test(opt, xp_config):
     return 25 if nt_test is None else nt_test
 
 
+def _rank_main(opt):
+    """One rank of `--n_devices` (mesh.spawn); its exit status."""
+    main(opt)
+    return 0
+
+
 def main(opt):
-    """Runs the evaluation; returns the per-batch wall-clock seconds."""
-    if opt.n_devices not in (None, 1):
-        raise ValueError("--n_devices: evaluation runs on one card")
-    device = resolve_device(opt.device)
+    """Runs the evaluation; returns the per-batch wall-clock seconds (None
+    on a rank other than 0, and in the process that spawned the ranks of
+    --n_devices)."""
+    n = opt.n_devices or 1
+    if opt.batch_size % n:
+        raise ValueError(f"--n_devices {n} must divide --batch_size "
+                         f"{opt.batch_size}")
+    if n > 1 and not getattr(opt, "coordinator_address", None):
+        mesh.spawn(_rank_main, n, opt)
+        return None
+    device = resolve_device(multihost.rank_device(opt))
+    with multihost.process_group(opt, device):
+        return _evaluate(opt, device)
+
+
+def _evaluate(opt, device):
     lpips_fn = make_video_lpips(opt.lpips_dir, device) if opt.lpips_dir \
         else None
     # missing I3D weights fail here, before the sampling loop
@@ -140,11 +169,14 @@ def main(opt):
     generator = torch.Generator(device=device)
     generator.manual_seed(opt.test_seed)
     with cudnn_deterministic():
-        results, samples, cond, gt, batch_seconds = run_test(
+        out = run_test(
             model, batches, nt_cond, nt_test,
             opt.n_samples, opt.samples_chunk, generator, o_inf, o_gen,
             pad_to=opt.batch_size,
             use_kernel_rollout=opt.fused_rollout != "off", lpips_fn=lpips_fn)
+    if out is None:     # a rank other than 0
+        return None
+    results, samples, cond, gt, batch_seconds = out
 
     fvd_value = None
     if opt.fvd:

@@ -2,6 +2,13 @@
 the optimisation step, dispatch windows of k steps (WindowStep: on the card
 one CUDA graph), and best-of-N validation.
 
+At more than one rank (parallel/) each rank steps on its slice of the
+global batch: it draws the global batch's noise, as one process would, and
+keeps its rows (`training_draws`), the gradients are averaged over the
+ranks before Adam (parallel/mesh.all_reduce_grads; in a process group of
+one rank too), and a validation draws the global batch's noise and sums
+its PSNR over the ranks, so that every rank reads the same metric.
+
 Adam at torch's defaults (b1 0.9, b2 0.999, eps 1e-8), the learning rate
 constant until `lr_burnin` steps and then decayed linearly to 0 over
 `lr_decay_iter` steps, as a LambdaLR stepped once per optimisation step.
@@ -27,6 +34,7 @@ from srvp_tpu_torch.models.lstm import lstm_apply
 from srvp_tpu_torch.models.srvp import SRVP
 from srvp_tpu_torch.objectives import elbo_loss
 from srvp_tpu_torch.ops.init import init_srvp_
+from srvp_tpu_torch.parallel import mesh, multihost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,17 +117,57 @@ def init_train_state(cfg: SRVPConfig, hp, device, res_gain=1.41):
     return make_train_state(model, hp)
 
 
+def batch_shape(x):
+    """(frames, videos) of a dense batch (T, B, ...) or a parts dict."""
+    if is_parts_batch(x):
+        return x["pos"].shape[2], x["pos"].shape[0]
+    return x.shape[0], x.shape[1]
+
+
+def training_draws(cfg, nt, bsz, oversampling, generator, device,
+                   rows=None):
+    """The noise that SRVP.forward draws from `generator` in training for a
+    batch of bsz videos of nt frames, drawn as it draws it (the same calls,
+    shapes and order: skip_t with skip connections, the infer_w frame keys,
+    eps_y, then eps_pos for the posterior rollout's o (nt - 1) substeps),
+    as its keyword arguments. `rows` (lo, hi) keeps those videos of the
+    batch: a rank's slice of the global batch's draws, so that a video's
+    noise does not depend on the rank count."""
+    keep = slice(*(rows or (0, bsz)))
+    draws = {}
+    if cfg.skipco:
+        draws["skip_t"] = torch.randint(0, nt, (bsz,), generator=generator,
+                                        device=device)[keep]
+    keys = torch.rand((bsz, nt), generator=generator, device=device)
+    draws["frame_idx"] = keys.argsort(dim=1)[:, :cfg.nt_inf].T[:, keep]
+    randn = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=generator, device=device, dtype=torch.float32)
+    draws["eps_y"] = randn(bsz, cfg.ny)[keep]
+    draws["eps_pos"] = randn(oversampling * (nt - 1), bsz, cfg.nz)[:, keep]
+    return draws
+
+
 def loss_and_grads(model, x, hp, **noise):
     """ELBO and its parameter gradients (left in .grad) for one batch, the
-    model in training mode."""
+    model in training mode. At more than one rank, noise drawn from a
+    generator alone is the global batch's (training_draws), and the
+    gradients are averaged over the ranks (in any process group)."""
     model.train()
     model.zero_grad(set_to_none=True)
+    count = multihost.process_count()
+    if count > 1 and set(noise) == {"generator"}:
+        nt, bsz = batch_shape(x)
+        rank = multihost.process_index()
+        noise = training_draws(model.cfg, nt, bsz * count, hp.oversampling,
+                               noise["generator"], _leaves(x)[0].device,
+                               rows=(rank * bsz, (rank + 1) * bsz))
     loss, aux = elbo_loss(model, x, oversampling=hp.oversampling,
                           obs_scale=hp.obs_scale, beta_y=hp.beta_y,
                           beta_z=hp.beta_z, l2_res=hp.l2_res,
                           use_kernel=hp.use_kernel,
                           compute_dtype=hp.compute_dtype, **noise)
     loss.backward()
+    mesh.all_reduce_grads(model)
     return loss, aux
 
 
@@ -370,7 +418,9 @@ def make_eval_batch(cfg, hp, nt, n_samples=None):
     the evaluation's (eval_lib.sample_rollout: posterior over the nt_cond
     conditioning frames, then the eager prior loop) on `eps`, a list of one
     eval_lib.chunk_noise(...) tuple per chunk, or on draws from
-    `generator` in that order. Frames are encoded and decoded in
+    `generator` in that order; at more than one rank, the chunk's noise
+    is the global batch's (x holds this rank's slice of it) and the
+    rank's rows are kept. Frames are encoded and decoded in
     hp.compute_dtype, the latent model in the frames' dtype (float32)."""
     n_samples = n_samples or hp.n_samples_test
     chunk = min(hp.val_samples_chunk, n_samples)
@@ -392,9 +442,11 @@ def make_eval_batch(cfg, hp, nt, n_samples=None):
         hx_z = lstm_apply(model.inf_z, hx)
         x_f = eval_lib.fold(x, chunk, 1)
         all_p, pred_p = [], []
+        rank, count = multihost.process_index(), multihost.process_count()
         for c in range(n_samples // chunk):
             e = eps[c] if eps is not None else eval_lib.chunk_noise(
-                cfg, bsz, chunk, hp.nt_cond, nt, o, o, generator, x.device)
+                cfg, bsz * count, chunk, hp.nt_cond, nt, o, o, generator,
+                x.device, rows=(rank * bsz, (rank + 1) * bsz))
             y_inf, y_gen = eval_lib.sample_rollout(
                 model, hx, hx_z, chunk, nt - hp.nt_cond + 1, o, o, e,
                 use_kernel_rollout=False)
@@ -412,8 +464,8 @@ def make_eval_batch(cfg, hp, nt, n_samples=None):
 
 def evaluate(eval_batch_fn, model, val_iter, n_iter_test, generator, device):
     """-mean prediction PSNR over n_iter_test validation batches (lower is
-    better; drives the best-model selection). Leaves the model in training
-    mode."""
+    better; drives the best-model selection), over every rank's videos.
+    Leaves the model in training mode."""
     total, n = 0.0, 0
     for j, batch in enumerate(val_iter):
         if j >= n_iter_test:
@@ -422,4 +474,5 @@ def evaluate(eval_batch_fn, model, val_iter, n_iter_test, generator, device):
         total += float(pred_psnr.sum())
         n += pred_psnr.shape[0]
     model.train()
+    total, n = multihost.host_sum([total, n])
     return -total / max(n, 1)

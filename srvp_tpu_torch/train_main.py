@@ -1,5 +1,5 @@
-"""SRVP training CLI on one GPU (counterpart of srvp_tpu/train_main.py and
-the repository's train.py).
+"""SRVP training CLI on one GPU or several (counterpart of
+srvp_tpu/train_main.py and the repository's train.py).
 
     python -m srvp_tpu_torch.train_main --dataset smmnist --data_dir DATA \
         --save_path XP --nc 1 --ny 20 --nz 20 --nt_inf 5 --seq_len 15 \
@@ -43,7 +43,24 @@ writes a torch.profiler trace of steps 10-15 to DIR. `--config FILE`
 `--torch_amp`, `--apex_amp`) runs the encoder and decoder in bfloat16, the
 latent model and the loss in float32. The `.pt` model files are float32
 state_dicts in the reference key names: `test_main --model_name model.pt`
-evaluates them. Not ported yet (ROADMAP.md): several GPUs.
+evaluates them.
+
+Several cards, one process a card (parallel/): `--n_devices N` alone starts
+N local ranks (rank r on cuda:r; `--device cuda:K` puts them all on card K
+under gloo); under torchrun pass `--coordinator_address auto`; or give each
+process `--coordinator_address host:port --num_processes N --process_id r
+[--local_rank l]`. `--batch_size` and `--batch_size_test` are the global
+batches: each rank trains on its contiguous slice of every batch (the
+one-process stream's rows), with the global batch's noise and batch
+statistics, and averages its gradients with the others' before Adam, so
+the parameters stay equal on every rank. A random seed is rank 0's. Rank 0
+alone writes config.json, metrics.jsonl (the loss terms averaged over the
+ranks) and the checkpoints; every rank reads the train state on
+`--resume`. SIGTERM to any rank stops every rank at the same step boundary
+(the ranks agree on it there), all with 143. `--steps_per_dispatch K > 1`
+on the cards needs NCCL (its all-reduce is captured in the window's graph);
+gloo cannot be captured, so K > 1 raises where the ranks share a card.
+`--n_dcn` must stay 1.
 """
 
 import os
@@ -62,6 +79,7 @@ from srvp_tpu_torch.data.device_compose import (parts_collate, stack_batches,
                                                 to_device)
 from srvp_tpu_torch.data.loader import (PREFETCH, DataLoader, PartsView,
                                          infinite_batches)
+from srvp_tpu_torch.parallel import mesh, multihost
 from srvp_tpu_torch.utils import checkpoint as ckpt
 from srvp_tpu_torch.utils.runtime import MetricsLogger
 
@@ -80,8 +98,9 @@ def train_hparams(opt):
         use_kernel=opt.fused_rollout != "off")
 
 
-def loaders(opt):
-    """(train, val) loaders of the dataset's folds, validation at
+def loaders(opt, rank=0, ranks=1):
+    """(train, val) loaders of the dataset's folds for rank `rank` of
+    `ranks` (each feeds the rank's slice of every global batch), validation at
     seq_len_test (Human3.6M: frames of the same stride, so a validation
     video spans (seq_len_test - 1) * subsampling + 1 frames), each
     `opt.n_workers` threads wide. Moving MNIST training batches are digits
@@ -96,15 +115,16 @@ def loaders(opt):
         valset.change_seq_len(opt.seq_len_test)
     prefetch = max(PREFETCH, 2 * (opt.steps_per_dispatch or 1))
     if opt.dataset == "smmnist" and not opt.no_device_compose:
-        train = DataLoader(PartsView(trainset), opt.batch_size, seed=opt.seed,
-                           collate_fn=parts_collate,
-                           num_workers=opt.n_workers, prefetch=prefetch)
+        trainset, collate = PartsView(trainset), parts_collate
     else:
-        train = DataLoader(trainset, opt.batch_size, seed=opt.seed,
-                           collate_fn=collate_uint8,
-                           num_workers=opt.n_workers, prefetch=prefetch)
+        collate = collate_uint8
+    shard = dict(shard_rank=rank, shard_count=ranks)
+    train = DataLoader(trainset, opt.batch_size, seed=opt.seed,
+                       collate_fn=collate, num_workers=opt.n_workers,
+                       prefetch=prefetch, **shard)
     val = DataLoader(valset, opt.batch_size_test, seed=opt.seed + 1,
-                     collate_fn=collate_uint8, num_workers=opt.n_workers)
+                     collate_fn=collate_uint8, num_workers=opt.n_workers,
+                     **shard)
     return train, val
 
 
@@ -174,20 +194,45 @@ def stop_profile(prof, profile_dir):
 
 def main(opt):
     """Trains; returns the exit status: 0, or 143 when SIGTERM stopped the
-    run (after saving its train state), or 130 after a KeyboardInterrupt."""
+    run (after saving its train state), or 130 after a KeyboardInterrupt.
+    With `--n_devices N` and no coordinator, starts the N local ranks and
+    returns their common status."""
     check_ported(opt)
+    n = opt.n_devices or 1
+    if n > 1 and not opt.coordinator_address:
+        return mesh.spawn(main, n, opt)
     spd = dispatch_width(opt)
-    device = resolve_device(opt.device)
+    device = resolve_device(multihost.rank_device(opt))
+    with multihost.process_group(opt, device) as backend:
+        if spd > 1 and device.type == "cuda" and backend == "gloo":
+            raise ValueError(
+                f"--steps_per_dispatch {spd} on a card needs NCCL: a window "
+                "is one CUDA graph, and gloo's collectives (ranks sharing "
+                "one card) cannot be captured in it")
+        return train(opt, device, spd)
+
+
+def train(opt, device, spd):
+    """main's run on this rank, in its process group (if any)."""
+    primary = multihost.is_primary()
+    say = print if primary else (lambda *a, **k: None)
     if opt.seed is None:
         opt.seed = random.randint(1, 10000)
+    # a seed drawn at random differs per rank, and the parameters are made
+    # from it, not broadcast
+    opt.seed = multihost.broadcast_seed(opt.seed)
     strict_fp32()
-    print(f"Learning on {device} (seed: {opt.seed}, compute dtype "
-          f"{str(compute_dtype(opt)).split('.')[-1]})", flush=True)
+    ranks = multihost.process_count()
+    say(f"Learning on {device} (seed: {opt.seed}, compute dtype "
+        f"{str(compute_dtype(opt)).split('.')[-1]})"
+        + (f" [{ranks} ranks]" if ranks > 1 else ""), flush=True)
 
-    print("Loading data...", flush=True)
-    train_loader, val_loader = loaders(opt)
+    say("Loading data...", flush=True)
+    train_loader, val_loader = loaders(opt, multihost.process_index(), ranks)
+    for loader in (train_loader, val_loader):
+        multihost.validate_loader_slices(loader)
 
-    print("Building model...", flush=True)
+    say("Building model...", flush=True)
     cfg = model_config(vars(opt))
     hp = train_hparams(opt)
     opt.n_iter = opt.n_iter or (opt.lr_scheduling_burnin
@@ -206,35 +251,37 @@ def main(opt):
         # model_best.pt
         best_val_metric = meta.get("best_val_metric")
         train_loader.fast_forward(resumed_step)
-        print(f"Resumed from step {resumed_step}", flush=True)
+        say(f"Resumed from step {resumed_step}", flush=True)
     eval_batch = train_lib.make_eval_batch(
         cfg, hp, nt=opt.seq_len_test or opt.seq_len)
-    os.makedirs(opt.save_path, exist_ok=True)
-    ckpt.remove_stale_tmp(opt.save_path)
-    ckpt.save_config(opt.save_path, vars(opt))
-    mlog = MetricsLogger(os.path.join(opt.save_path, "metrics.jsonl"),
-                         truncate_after=resumed_step)
+    mlog = writer = None
+    if primary:
+        os.makedirs(opt.save_path, exist_ok=True)
+        ckpt.remove_stale_tmp(opt.save_path)
+        ckpt.save_config(opt.save_path, vars(opt))
+        mlog = MetricsLogger(os.path.join(opt.save_path, "metrics.jsonl"),
+                             truncate_after=resumed_step)
+        writer = ckpt.AsyncCheckpointer()
 
     itr = ts.step
     val_metric = prof = None
     status = 0
     frames_per_batch = opt.seq_len * opt.batch_size
     t_last, itr_last = time.perf_counter(), itr
-    # One process decides the stop. Under DDP (ROADMAP.md, Queue 1) the
-    # ranks must agree on it at the step boundary first: a rank that stops
-    # alone leaves the others waiting in a collective (ADVICE.md, first
-    # item).
+    # the ranks agree on the stop at each step (or window) boundary
+    # (multihost.agree_stop): a rank that stopped alone would leave the
+    # others waiting in a collective
     stop_requested = []
     prev_handler = signal.signal(
         signal.SIGTERM, lambda *_: stop_requested.append(True))
-    writer = ckpt.AsyncCheckpointer()
     # the writer's copy stream must be idle while a graph is captured
-    window = (train_lib.WindowStep(ts, hp, spd, before_capture=writer.wait)
-              if spd > 1 else None)
+    window = (train_lib.WindowStep(
+        ts, hp, spd, before_capture=writer.wait if writer else None)
+        if spd > 1 else None)
     try:
         for width, batch in device_batches(train_loader, device, spd, itr,
                                            opt.n_iter):
-            if itr >= opt.n_iter or stop_requested:
+            if itr >= opt.n_iter or multihost.agree_stop(stop_requested):
                 break
             itr += width
             if opt.profile_dir and itr == PROFILE_STEPS[0]:
@@ -251,36 +298,43 @@ def main(opt):
                 prof = None
 
             if itr % opt.log_interval == 0:
-                m = {k: float(v) for k, v in metrics.items()}  # synchronises
+                # the global batch's loss terms; synchronises
+                m = {k: float(v)
+                     for k, v in mesh.reduce_metrics(metrics).items()}
                 now = time.perf_counter()
                 fps = frames_per_batch * (itr - itr_last) / (now - t_last)
                 t_last, itr_last = now, itr
-                print(f"[{itr}/{opt.n_iter}] loss={m['loss']:.4f} "
-                      f"nll={m['nll']:.4f} kl_y_0={m['kl_y_0']:.4f} "
-                      f"kl_z={m['kl_z']:.4f} lr={m['lr']:.2e} "
-                      f"fps={fps:.0f} val={val_metric} "
-                      f"best={best_val_metric}", flush=True)
-                mlog.log(itr, fps=fps, **m)
+                say(f"[{itr}/{opt.n_iter}] loss={m['loss']:.4f} "
+                    f"nll={m['nll']:.4f} kl_y_0={m['kl_y_0']:.4f} "
+                    f"kl_z={m['kl_z']:.4f} lr={m['lr']:.2e} "
+                    f"fps={fps:.0f} val={val_metric} "
+                    f"best={best_val_metric}", flush=True)
+                if mlog:
+                    mlog.log(itr, fps=fps, **m)
 
             if itr % opt.val_interval == 0:
                 if window is not None:
                     window.release()
                 val_gen = torch.Generator(device=device).manual_seed(
                     opt.seed + 123 + itr)
+                # the same metric on every rank, so the same decision
                 val_metric = train_lib.evaluate(
                     eval_batch, ts.model, iter(val_loader), opt.n_iter_test,
                     val_gen, device)
-                print(f"[{itr}] val_metric (-PSNR): {val_metric:.4f}",
-                      flush=True)
-                mlog.log(itr, val_metric=val_metric)
+                say(f"[{itr}] val_metric (-PSNR): {val_metric:.4f}",
+                    flush=True)
+                if mlog:
+                    mlog.log(itr, val_metric=val_metric)
                 if best_val_metric is None or val_metric < best_val_metric:
                     best_val_metric = val_metric
-                    snap = ckpt.Snapshot(ts.model.state_dict())
-                    writer.submit(lambda s=snap: ckpt.save_model(
-                        opt.save_path, "model_best", s.host()))
+                    if writer:
+                        snap = ckpt.Snapshot(ts.model.state_dict())
+                        writer.submit(lambda s=snap: ckpt.save_model(
+                            opt.save_path, "model_best", s.host()))
                 t_last = time.perf_counter()
 
-            if opt.chkpt_interval and itr % opt.chkpt_interval == 0:
+            if writer and opt.chkpt_interval \
+                    and itr % opt.chkpt_interval == 0:
                 snap = ckpt.Snapshot(train_lib.state_dict(ts))
 
                 def save_periodic(s=snap, i=itr, best=best_val_metric):
@@ -296,19 +350,23 @@ def main(opt):
         status = 130
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
-        mlog.close()
+        if mlog:
+            mlog.close()
         if prof is not None:
             stop_profile(prof, opt.profile_dir)
-    if stop_requested:
-        print("SIGTERM received: checkpointing and exiting", flush=True)
+    # once more after the loop (on every rank, however it ended): a SIGTERM
+    # during the last step stops too
+    if status != 130 and multihost.agree_stop(stop_requested):
+        say("SIGTERM received: checkpointing and exiting", flush=True)
         status = 143
 
-    print("Saving...", flush=True)
-    writer.wait()   # an earlier save must not land after this one
-    ckpt.save_model(opt.save_path, "model", ts.model.state_dict())
-    ckpt.save_train_state(opt.save_path, train_lib.state_dict(ts),
-                          extra={"best_val_metric": best_val_metric})
-    print("Done", flush=True)
+    if writer:
+        print("Saving...", flush=True)
+        writer.wait()   # an earlier save must not land after this one
+        ckpt.save_model(opt.save_path, "model", ts.model.state_dict())
+        ckpt.save_train_state(opt.save_path, train_lib.state_dict(ts),
+                              extra={"best_val_metric": best_val_metric})
+    say("Done", flush=True)
     return status
 
 

@@ -2,8 +2,9 @@
 with the same type, default, `required` and choices, reads `--config FILE`
 as the JAX parser does, prunes periodic snapshots to `--keep_chkpt`, and
 selects bfloat16 compute from the mixed-precision flags as the JAX trainer
-does, and rejects the flags of parts it has not ported when they are
-set."""
+does; of the flags of several processes it refuses, with a reason, what
+has no meaning on GPUs or would be ignored, and `--local_rank` picks the
+rank's card."""
 
 import os
 
@@ -16,6 +17,7 @@ from srvp_tpu import train_main as jax_train_main
 from srvp_tpu.helper import DotDict
 from srvp_tpu_torch import args as port_args
 from srvp_tpu_torch import train_main
+from srvp_tpu_torch.parallel import multihost
 
 from test_torch_train_cli import parse
 
@@ -111,14 +113,34 @@ def test_mixed_precision_flags_select_the_jax_compute_dtype(tmp_path, flags,
     assert port_args.compute_dtype(opt) == getattr(torch, precision)
 
 
+# what the trainer says when it refuses each flag set alone (None: the
+# flag works and is checked otherwise)
+REFUSED = {"--local_rank": None, "--n_dcn": "no 2-D mesh. NCCL",
+           "--coordinator_address": "needs the launcher's environment",
+           "--num_processes": "need --coordinator_address",
+           "--process_id": "need --coordinator_address"}
+
+
 @pytest.mark.parametrize("flags", [
     ["--local_rank", "1"], ["--n_dcn", "2"],
     ["--coordinator_address", "auto"], ["--num_processes", "2"],
     ["--process_id", "1"]])
-def test_jax_flags_of_unported_parts_raise(tmp_path, flags):
+def test_jax_flags_of_unported_parts_raise(tmp_path, flags, monkeypatch):
+    """--n_dcn 2 (the JAX multi-slice mesh), ranks without an address and
+    `auto` outside a launcher raise their reason before any work;
+    --local_rank 1 makes `--device cuda` the card cuda:1 (the parsed
+    device; no card needed)."""
+    for name in multihost.LAUNCHER_ENV:
+        monkeypatch.delenv(name, raising=False)
     opt = parse(tmp_path, "--device", "cpu", *flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    reason = REFUSED[flags[0]]
+    if reason is None:
+        opt.device = "cuda"
+        assert multihost.rank_device(opt) == torch.device("cuda", 1)
+        return
+    with pytest.raises(ValueError, match=reason):
         train_main.main(opt)
+    assert not (tmp_path / "xp").exists()
 
 
 def test_amp_flags_stay_exclusive(tmp_path):

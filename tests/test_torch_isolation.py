@@ -1,8 +1,8 @@
 """The PyTorch port imports neither jax nor srvp_tpu, nor PIL (its PNG
 frames go through its own decoder, its GIFs through its own writer), its
-evaluation metrics (LPIPS, I3D, FVD) and its serving export and tools
-included, and its entry points refuse CUDA where there is none instead of
-falling back to the CPU."""
+evaluation metrics (LPIPS, I3D, FVD), its serving export and tools and
+its data-parallel modules included, and its entry points refuse CUDA
+where there is none instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -36,7 +36,9 @@ SCRIPT = textwrap.dedent("""
             "srvp_tpu_torch.generate", "srvp_tpu_torch.swap",
             "srvp_tpu_torch.bench_serving", "srvp_tpu_torch.kernels.ops",
             "srvp_tpu_torch.ops.counter_rng",
-            "srvp_tpu_torch.utils.gif"} <= set(names)
+            "srvp_tpu_torch.utils.gif", "srvp_tpu_torch.parallel",
+            "srvp_tpu_torch.parallel.mesh",
+            "srvp_tpu_torch.parallel.multihost"} <= set(names)
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401  (its helpers; main() is not run)

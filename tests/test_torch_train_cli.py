@@ -2,7 +2,7 @@
 losses as the JAX package's {"step", "wall_s", ...} rows, validates,
 writes a model.pt that the port's test_main evaluates, refuses CUDA where
 there is none, trains in bfloat16 under the JAX trainer's mixed-precision
-flags, and rejects the flags of parts that are not ported yet."""
+flags, and starts the local ranks of `--n_devices`."""
 
 import json
 
@@ -124,7 +124,14 @@ def test_mixed_precision_flags_train(tmp_path, flags, dtype, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--n_devices", "2"]])
-def test_flags_of_unported_parts_raise(tmp_path, flags):
+def test_flags_of_unported_parts_raise(tmp_path, flags, monkeypatch):
+    """--n_devices 2 without a coordinator reaches the spawn of the two
+    local ranks (parallel/mesh.spawn), whose common status main returns;
+    the ranks' runs are tests/test_torch_multiproc_cli.py's."""
+    calls = []
+    monkeypatch.setattr(train_main.mesh, "spawn",
+                        lambda fn, n, opt: calls.append((fn, n, opt)) or 0)
     opt = parse(tmp_path, "--device", "cpu", *flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_main.main(opt)
+    assert train_main.main(opt) == 0
+    assert calls == [(train_main.main, 2, opt)]
+    assert not (tmp_path / "xp").exists()
