@@ -239,12 +239,30 @@ Phases, each of which fails the script:
      spawned gloo ranks) against one rank, child processes: every result
      and artifact bit-equal, or within the rank-count tolerance (one uint8
      level, metrics rtol 1e-5) with the tensors that differ printed.
+ 20. main path, the data tools (data_tools_path): the loader bench
+     (srvp_tpu_torch.bench_loader, LOADER_BENCH_ARGS) writes KTH's and
+     BAIR's synthetic PNG trees at noise_amp 14 (natural video's noise)
+     with the package's writer, packs them with data/pack.py, and
+     at the training shapes (KTH 100 x 20, BAIR 192 x 12, Human3.6M 100 x
+     16 at --subsampling 8, Moving MNIST 128 x 15) times the port's loader
+     at 1 and 4 threads, 3 batches a leg: the PNG tree through the native
+     decoder, the plain decoder, the packed tree, Human3.6M's videos, the
+     native Moving MNIST generator (whole videos and parts); every leg's
+     first batch bit-equal to the others', the native decoder equal to the
+     plain one on the trees' frames; and the training step of each
+     configuration in bf16 on the card (kernels 2-7, exact launch
+     counts). Its four JSON lines (loader frames/s against the step's) are
+     printed. The packed trees read back through the datasets; a KTH test
+     set of the test persons' videos made by data/test_sets.py through the
+     native and the plain decoders, equal, and read back by KTH's test
+     fold.
 test_main runs under cuDNN's deterministic algorithms; phases 6 and 8 run
 its kernel evaluation once more under cuDNN's defaults and print the s per
 batch of both.
 Then it prints one {"kernels": [...]} line (the rows of kernels 1, 4 and 6
-also give `serving_launches`, their launches in phase 18's checks) and,
-last, the device line.
+also give `serving_launches`, their launches in phase 18's checks; every
+row `data_tools_launches`, its launches in phase 20's step leg) and, last,
+the device line.
 It exits non-zero without a result when CUDA is unavailable.
 """
 
@@ -278,6 +296,11 @@ from srvp_tpu_torch import (bench, bench_conv_stage, eval_lib, test_main,
 from srvp_tpu_torch.config import (cudnn_deterministic, model_config,
                                    strict_fp32)
 from srvp_tpu_torch.data.device_compose import materialize, to_device
+from srvp_tpu_torch.data.synthetic import (synthetic_kth_videos,
+                                           write_bair_trees,
+                                           write_human_tree,
+                                           write_kth_packed_tree,
+                                           write_kth_png_tree)
 from srvp_tpu_torch.kernels import build as kbuild
 from srvp_tpu_torch.kernels import conv_stage as kcs
 from srvp_tpu_torch.kernels import launches as klaunches
@@ -1221,203 +1244,6 @@ def synthetic_sequences(n, seq_len, nx, seed, n_glyphs=2, size=28,
                         vel[a] = -vel[a]
                         pos[a] = np.clip(pos[a], 0, lim)
     return np.minimum(out, 255).astype(np.uint8)
-
-
-def synthetic_kth_videos(n, n_frames, nx, rng):
-    """uint8 (n, T, nx, nx) KTH-like videos: a static background of flat
-    8x8 blocks with faint noise, and a flat dark figure (a body and a head)
-    walking across at a constant speed and turning at the borders. The flat
-    regions make tied 2x2 windows, as KTH's plain backgrounds do."""
-    yy, xx = np.mgrid[0:nx, 0:nx]
-    out = np.empty((n, n_frames, nx, nx), np.uint8)
-    for i in range(n):
-        bg = 80.0 + 100.0 * np.kron(rng.rand(nx // 8, nx // 8),
-                                    np.ones((8, 8)))
-        bg = np.round(bg) + rng.randint(0, 2, (nx, nx)) * (rng.rand() < 0.5)
-        cy, cx = rng.uniform(0.4 * nx, 0.6 * nx), rng.uniform(8, nx - 8)
-        vx = rng.choice([-3, -2, -1, 1, 2, 3])
-        for t in range(n_frames):
-            body = ((xx - cx) / 5.0) ** 2 + ((yy - cy) / 13.0) ** 2 <= 1
-            head = (xx - cx) ** 2 + (yy - cy + 17) ** 2 <= 16
-            out[i, t] = np.where(body | head, 40, bg)
-            cx += vx
-            if not 6 <= cx <= nx - 6:
-                vx, cx = -vx, float(np.clip(cx, 6, nx - 6))
-    return out
-
-
-def kth_tree_videos(nx, seed):
-    """(class, video name, uint8 (T, nx, nx) video) of the synthetic KTH
-    training tree: 6 classes x persons 1-25, one video each of 32 to 47
-    frames, but 16 for person 1 (shorter than a training window, which
-    makes the loader draw again)."""
-    from srvp_tpu_torch.data.kth import CLASSES
-    rng = np.random.RandomState(seed)
-    for c in CLASSES:
-        for person in range(1, 26):
-            n_frames = 16 if person == 1 else rng.randint(32, 48)
-            yield (c, f"person{person:02d}_{c}_d1",
-                   synthetic_kth_videos(1, n_frames, nx, rng)[0])
-
-
-def write_kth_packed_tree(data_dir, nx, seed):
-    """The packed KTH training tree (data/kth.py) of kth_tree_videos, and
-    its COMPLETE.json. Returns the number of videos."""
-    root = Path(data_dir) / f"packed_{nx}"
-    n = 0
-    for c, name, video in kth_tree_videos(nx, seed):
-        (root / c).mkdir(parents=True, exist_ok=True)
-        np.save(root / c / f"{name}.npy", video)
-        n += 1
-    with open(root / "COMPLETE.json", "w") as f:
-        json.dump({"videos": n}, f)
-    return n
-
-
-def write_kth_png_tree(data_dir, nx, seed):
-    """The PNG tree `processed_{nx}/{class}/{video}/image-{t}.png` of the
-    same videos as write_kth_packed_tree(data_dir, nx, seed): every third
-    video's frames as RGB files whose red channel is the frame (the
-    loaders keep the red channel). Returns the frame paths written."""
-    paths = []
-    for k, (c, name, video) in enumerate(kth_tree_videos(nx, seed)):
-        if k % 3 == 0:
-            video = np.stack([video, 255 - video, video // 2], axis=-1)
-        paths += write_png_video(
-            Path(data_dir) / f"processed_{nx}" / c / name, video,
-            "image-{:03d}.png")
-    return paths
-
-
-# PNG files written by the stdlib (no image library on the card's machine):
-# row y of frame t under row filter (y + t) % 5 of the five (None, Sub, Up,
-# Average, Paeth), so that each frame holds every filter and the first row,
-# which has no row above, meets each of them over five frames
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-def png_filtered_rows(img, bpp):
-    """uint8 (H, W * bpp) -> uint8 (5, H, W * bpp): every row under each of
-    the five row filters."""
-    x = img.astype(np.int16)
-    up, left, up_left = (np.zeros_like(x) for _ in range(3))
-    up[1:], left[:, bpp:], up_left[1:, bpp:] = x[:-1], x[:, :-bpp], \
-        x[:-1, :-bpp]
-    p = left + up - up_left
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
-    paeth = np.where((pa <= pb) & (pa <= pc), left,
-                     np.where(pb <= pc, up, up_left))
-    return (np.stack([x, x - left, x - up, x - ((left + up) >> 1),
-                      x - paeth]) & 255).astype(np.uint8)
-
-
-def png_bytes(img, filters):
-    """An 8-bit PNG file of uint8 img, (H, W) gray or (H, W, 3) RGB, row y
-    under row filter filters[y % len(filters)]."""
-    import struct
-    import zlib
-    h, w = img.shape[:2]
-    bpp = 1 if img.ndim == 2 else 3
-    kinds = np.array([filters[y % len(filters)] for y in range(h)], np.uint8)
-    rows = png_filtered_rows(img.reshape(h, w * bpp), bpp)[kinds,
-                                                           np.arange(h)]
-    raw = np.concatenate([kinds[:, None], rows], axis=1)
-
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body)))
-    return (PNG_SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                         0 if bpp == 1 else 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + chunk(b"IEND", b""))
-
-
-def write_png_video(vdir, video, name="{:02d}.png"):
-    """Frame t of uint8 video (T, H, W[, 3]) as vdir / name.format(t),
-    under the filters (y + t) % 5. Returns the paths."""
-    vdir.mkdir(parents=True, exist_ok=True)
-    paths = []
-    for t, frame in enumerate(video):
-        paths.append(vdir / name.format(t))
-        paths[-1].write_bytes(png_bytes(frame, [(y + t) % 5
-                                                for y in range(5)]))
-    return paths
-
-
-def synthetic_rgb_videos(n, n_frames, nx, rng):
-    """uint8 (n, T, nx, nx, 3) videos: a static colour gradient and a flat
-    coloured disc moving at a constant speed, turning at the borders."""
-    yy, xx = np.mgrid[0:nx, 0:nx] / (nx - 1.0)
-    out = np.empty((n, n_frames, nx, nx, 3), np.uint8)
-    t = np.arange(n_frames)[:, None]
-    for i in range(n):
-        c0, c1, disc = rng.rand(3, 3) * [[120], [120], [255]]
-        a = rng.rand() * 2 * np.pi
-        ramp = (np.cos(a) * xx + np.sin(a) * yy + 1) / 2
-        bg = np.round(c0 + ramp[..., None] * (c1 - c0))
-        pos = rng.uniform(0.2, 0.8, 2) + rng.uniform(-0.03, 0.03, 2) * t
-        pos = 1 - np.abs(1 - np.mod(pos, 2))    # (T, 2), bouncing in [0, 1]
-        inside = (xx - pos[:, :1, None]) ** 2 \
-            + (yy - pos[:, 1:, None]) ** 2 <= 0.02
-        out[i] = np.where(inside[..., None], np.round(disc), bg)
-    return out
-
-
-def write_bair_trees(png_dir, packed_dir, n_train, n_test, seed):
-    """A BAIR dataset twice, as the PNG tree `png_dir/processed_data/
-    {train,test}/traj_{v // 16}/{v % 16}/{t:02d}.png`
-    (scripts/make_synthetic_bair.py's layout) and as the packed tree
-    `packed_dir/packed_data/{fold}/traj_{v // 16}/{v % 16}.npy` with its
-    COMPLETE.json (preprocessing/bair/pack.py's): synthetic_rgb_videos of
-    30 frames. Returns the frame paths written."""
-    rng = np.random.RandomState(seed)
-    paths = []
-    for fold, n in (("train", n_train), ("test", n_test)):
-        packed = Path(packed_dir) / "packed_data" / fold
-        for v, video in enumerate(synthetic_rgb_videos(n, 30, 64, rng)):
-            rel = Path(f"traj_{v // 16}") / str(v % 16)
-            paths += write_png_video(
-                Path(png_dir) / "processed_data" / fold / rel, video)
-            (packed / rel.parent).mkdir(parents=True, exist_ok=True)
-            np.save(packed / f"{rel}.npy", video)
-        with open(packed / "COMPLETE.json", "w") as f:
-            json.dump({"videos": n}, f)
-    return paths
-
-
-def val_fold(n):
-    """The items of a training dataset of n that go to the validation fold
-    (data/base.VideoDataset.get_fold)."""
-    ids = list(range(n))
-    np.random.RandomState(42).shuffle(ids)
-    return set(ids[int(0.95 * n):])
-
-
-def write_human_tree(data_dir, n_train, train_len, val_len, n_test,
-                     seq_len, subsampling, seed):
-    """A Human3.6M tree (preprocessing/human/convert.py's and
-    make_test_set.py's layout): `train/S{s}_Act_{v}.npz` of
-    synthetic_rgb_videos of train_len = (lo, hi) frames, but val_len for
-    the videos of the validation fold (a validation window spans
-    (seq_len_test - 1) * subsampling + 1 frames), and `test_set_{seq_len}_
-    {subsampling}/test_{i}.npz` clips of (seq_len - 1) * subsampling + 1
-    frames."""
-    rng = np.random.RandomState(seed)
-    names = [f"S{1 + v % 5}_Act_{v}" for v in range(n_train)]
-    in_order = sorted(names)     # the dataset's order: sorted file names
-    val = {in_order[i] for i in val_fold(n_train)}
-    (Path(data_dir) / "train").mkdir(parents=True, exist_ok=True)
-    for v, name in enumerate(names):
-        n_frames = val_len if name in val else rng.randint(*train_len)
-        np.savez(Path(data_dir) / "train" / f"{name}.npz",
-                 image=synthetic_rgb_videos(1, n_frames, 64, rng)[0],
-                 filename=name, subject=1 + v % 5)
-    test = Path(data_dir) / f"test_set_{seq_len}_{subsampling}"
-    test.mkdir(parents=True, exist_ok=True)
-    for i, clip in enumerate(synthetic_rgb_videos(
-            n_test, (seq_len - 1) * subsampling + 1, 64, rng)):
-        np.savez(test / f"test_{i}.npz", image=clip, frame=0)
 
 
 def write_test_set(cfg, data_dir, n_videos, nt_test, seed):
@@ -3683,6 +3509,96 @@ def data_parallel_path():
     return summary
 
 
+# the data tools phase (20): the loader bench (srvp_tpu_torch.bench_loader)
+# at the training shapes on trees of natural video's noise (noise_amp 14),
+# 3 timed batches a leg at 1 and 4 threads, its step leg in bf16 on the four
+# configurations, LOADER_WARMUP + LOADER_STEPS steps each; then a KTH test
+# set of KTH_TEST_SET windows of the test persons' videos
+LOADER_WARMUP, LOADER_STEPS = 3, 6
+LOADER_BENCH_ARGS = ["--noise_amp", "14", "--n_batches", "3", "--workers",
+                     "1,4", "--warmup", str(LOADER_WARMUP), "--steps",
+                     str(LOADER_STEPS), "--precision", "bfloat16"]
+KTH_TEST_SET = dict(n_frames=24, size=32, seq_len=20)
+
+
+def data_tools_path():
+    """Phase 20 (the module docstring). Returns the bench's rows and the
+    step leg's launches."""
+    from srvp_tpu_torch import bench_loader
+    from srvp_tpu_torch.data import native, synthetic, test_sets
+    from srvp_tpu_torch.data.bair import BAIR
+    from srvp_tpu_torch.data.kth import KTH
+    t_phase = time.perf_counter()
+    root = WORK_DIR / "data_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    klaunches.reset()
+    rows = bench_loader.main(LOADER_BENCH_ARGS + ["--root",
+                                                  str(root / "bench")])
+    counts = klaunches.counts()
+    steps = LOADER_WARMUP + LOADER_STEPS
+    vgg = 4 * steps * sum(c["kwargs"]["archi"] == "vgg" for c in (
+        bench_loader.step_config(n) for n in bench_loader.CONFIG_FILES))
+    expect_launches("data tools path (the loader bench's step leg)", counts,
+                    dict(train_rollout_fwd=4 * steps,
+                         train_rollout_bwd=8 * steps,
+                         maxpool_fwd_bf16=vgg, maxpool_bwd_bf16=vgg,
+                         upsample_fwd_bf16=vgg, upsample_bwd_bf16=vgg))
+    kind = torch.cuda.get_device_name(0)
+    for row in rows:
+        name = row["metric"].rsplit("_", 1)[-1]
+        c = bench_loader.step_config(name)
+        rates = [v for legs in row["legs"].values() for v in legs.values()]
+        if not (row["batches_agree"] and row["device"] == kind
+                and row["device_rate_source"] == "measured"
+                and (row["batch"], row["seq_len"]) == (c["batch"],
+                                                       c["seq_len"])
+                and len(row["legs"]) == 2
+                and np.all(np.isfinite(rates + [row["device_rate"]]))
+                and min(rates) > 0 and row["device_rate"] > 0):
+            raise SystemExit(f"data tools: loader bench row {row}")
+    # the packed trees the bench wrote, read back through the datasets
+    bench_root = Path(rows[0]["root"])
+    for ds, n in ((KTH.make_dataset(str(bench_root), 64, 20, True),
+                   synthetic.BENCH_KTH_VIDEOS),
+                  (BAIR.make_dataset(str(bench_root), 12, True),
+                   synthetic.BENCH_BAIR_VIDEOS)):
+        if not ds.packed or len(ds.data) != n:
+            raise SystemExit(f"data tools: packed tree of {len(ds.data)} "
+                             f"videos (packed {ds.packed}), expected {n}")
+    # a KTH test set of the test persons, through the native decoder and
+    # through the plain one, read back by KTH's test fold
+    t0 = time.perf_counter()
+    kth_test = root / "kth_test"
+    synthetic.write_kth_test_videos(kth_test, KTH_TEST_SET["n_frames"],
+                                    noise_amp=14,
+                                    processes=len(os.sched_getaffinity(0)))
+    size, seq_len = KTH_TEST_SET["size"], KTH_TEST_SET["seq_len"]
+    before = native.decoded["frames"]
+    path = Path(test_sets.make_kth_test_set(str(kth_test), size, seq_len))
+    decoded = native.decoded["frames"] - before
+    with np.load(path) as arc:
+        made = {k: arc[k] for k in arc.files}
+    path.rename(kth_test / "native.npz")
+    test_sets.make_kth_test_set(str(kth_test), size, seq_len, plain=True)
+    with np.load(path) as arc:
+        plain = {k: arc[k] for k in arc.files}
+    fold = KTH.make_dataset(str(kth_test), 64, seq_len, train=False)
+    seqs = made["sequences"]
+    if not (seqs.shape == (size, seq_len, 64, 64) and seqs.dtype == np.uint8
+            and decoded == size * seq_len and len(fold) == size
+            and all(np.array_equal(made[k], plain[k]) for k in made)
+            and all(np.array_equal(fold.get_item(i), seqs[i])
+                    for i in range(size))
+            and set(made["persons"]) <= set(range(21, 26))):
+        raise SystemExit(f"data tools: KTH test set {seqs.shape} "
+                         f"{seqs.dtype}, {decoded} frames decoded")
+    print(f"data tools: KTH test set of {size} x {seq_len} frames "
+          f"({len(fold)} read back, native and plain decoders equal) in "
+          f"{time.perf_counter() - t0:.1f} s; step leg launches {counts}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, counts
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                bound_ms, bound_by, library_ms=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3819,6 +3735,10 @@ def main():
     # on the card, test_main at two ranks
     torch.cuda.empty_cache()
     data_parallel_path()
+    # the data tools: the loader bench against the step on the card, the
+    # packers and a KTH test set
+    torch.cuda.empty_cache()
+    _, tools_counts = data_tools_path()
     # launches of one call at each checked batch, over the symbolic
     # artifacts
     served_counts = {}
@@ -3875,6 +3795,8 @@ def main():
             conv_counts[counted], row["max_abs_err"], row["ms"],
             row["plain_ms"], row["bound_ms"], row["bound_by"],
             row["library_ms"]))
+    for row in kernels:     # launches of phase 20's step leg
+        row["data_tools_launches"] = tools_counts.get(row["name"], 0)
     print(f"conv stage, {len(conv_rows)} KTH vgg sites at N="
           f"{conv_rows[0]['shape'][0]} in fp32: kernel "
           f"{sum(r['ms'] for r in conv_rows):.3f} ms, cuDNN "

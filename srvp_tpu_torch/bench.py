@@ -128,7 +128,9 @@ def make_batch(c, seed=0):
             np.float32)
 
 
-def _train_state(c, dtype, device):
+def train_state(c, dtype, device):
+    """(the train state of configuration c from torch's seed 0, its
+    hyperparameters) with the compute dtype."""
     hp = train_lib.TrainHParams(nt_cond=c["nt_cond"],
                                 oversampling=c["oversampling"],
                                 compute_dtype=dtype)
@@ -150,20 +152,19 @@ def step_flops(ts, x, hp, device):
     return float(counter.get_total_flops())
 
 
-def bench_train(name, args, device, dtype):
-    """The training leg of one configuration: (frames/s, info)."""
-    c = config(name, args.tiny)
-    ts, hp = _train_state(c, dtype, device)
-    x = torch.from_numpy(make_batch(c)).to(device)
-    flops = step_flops(ts, x, hp, device)
+def timed_steps(name, ts, x, hp, warmup, steps, device):
+    """`warmup` training steps on batch x, then `steps` timed ones: (s a
+    step, the last loss). The window closes by reading the last loss as a
+    Python float, which must be finite; the peak memory statistics are
+    reset as it opens."""
     gen = torch.Generator(device=device).manual_seed(0)
-    for _ in range(args.warmup):
+    for _ in range(warmup):
         metrics = train_lib.train_step(ts, x, hp, generator=gen)
     float(metrics["loss"])
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    for _ in range(args.steps):
+    for _ in range(steps):
         metrics = train_lib.train_step(ts, x, hp, generator=gen)
     # step N's loss depends on step N-1's parameters: reading it waits for
     # the whole chain
@@ -171,8 +172,18 @@ def bench_train(name, args, device, dtype):
     dt = time.perf_counter() - t0
     if not np.isfinite(final_loss):
         raise RuntimeError(f"{name}: non-finite loss {final_loss} after "
-                           f"{args.steps} bench steps")
-    sec_per_step = dt / args.steps
+                           f"{steps} bench steps")
+    return dt / steps, final_loss
+
+
+def bench_train(name, args, device, dtype):
+    """The training leg of one configuration: (frames/s, info)."""
+    c = config(name, args.tiny)
+    ts, hp = train_state(c, dtype, device)
+    x = torch.from_numpy(make_batch(c)).to(device)
+    flops = step_flops(ts, x, hp, device)
+    sec_per_step, final_loss = timed_steps(name, ts, x, hp, args.warmup,
+                                           args.steps, device)
     on_card = device.type == "cuda"
     info = {
         "backend": device.type, "chips": 1, "steps": args.steps,
@@ -202,7 +213,7 @@ def golden_loss_step2(name, args, device):
     c = config(name, args.tiny)
     c["batch"] = min(c["batch"], GOLDEN_VIDEOS)
     with cudnn_deterministic():
-        ts, hp = _train_state(c, torch.float32, device)
+        ts, hp = train_state(c, torch.float32, device)
         x = torch.from_numpy(make_batch(config(name, args.tiny))[:, :c["batch"]])
         x = x.to(device)
         gen = torch.Generator(device=device).manual_seed(0)

@@ -2,12 +2,14 @@
 srvp_tpu/data/bair.py).
 
 A fold is the packed tree `{data_dir}/packed_data/{fold}/{dir}/{video}.npy`,
-one raw uint8 (30, 64, 64, 3) array per video (preprocessing/bair/pack.py),
+one raw uint8 (30, 64, 64, 3) array per video (data/pack.py),
 when its `COMPLETE.json` marker names the number of videos found;
 otherwise the PNG tree `{data_dir}/processed_data/{fold}/{dir}/{video}/
 *.png`, whose frames the native PNG decoder reads (data/native.py). Both
 walk their directories in the same sorted order, so the videos, and the
-seed-42 train/validation folds, are the same on either. An item is a video
+seed-42 train/validation folds, are the same on either;
+`prefer_packed=False` reads the PNG tree even where a complete packed tree
+stands beside it (srvp_tpu/data/bair.py:100-103). An item is a video
 of the fold's order; a training window starts at random (drawn from the
 item's RandomState as in the JAX package), a test one at frame 0. A batch
 is decoded in one native call (`get_batch_seeded`, and
@@ -54,6 +56,11 @@ class BAIR(VideoDataset):
                 t0:t0 + self.seq_len]
         return self.data[index][t0:t0 + self.seq_len]
 
+    def frame_paths(self, index, rng):
+        """The frame files of get_item's window of video `index` (PNG
+        tree)."""
+        return self._window(index, rng)
+
     def get_item(self, index, rng=None):
         """uint8 (T, 64, 64, 3): video `index` from a random start (train)
         or from frame 0."""
@@ -96,10 +103,10 @@ class BAIR(VideoDataset):
         return out
 
     @classmethod
-    def make_dataset(cls, data_dir, seq_len, train):
+    def make_dataset(cls, data_dir, seq_len, train, prefer_packed=True):
         fold = "train" if train else "test"
         packed_root = join(data_dir, "packed_data", fold)
-        if os.path.isdir(packed_root):
+        if prefer_packed and os.path.isdir(packed_root):
             data = [join(packed_root, d, f)
                     for d in sorted(os.listdir(packed_root))
                     if os.path.isdir(join(packed_root, d))
@@ -112,8 +119,8 @@ class BAIR(VideoDataset):
         if not os.path.isdir(root):
             raise FileNotFoundError(
                 f"no BAIR PNG tree at {root}, and no complete packed tree at "
-                f"{packed_root} (preprocessing/bair/pack.py writes it with "
-                "its COMPLETE.json)")
+                f"{packed_root} (python -m srvp_tpu_torch.data.pack "
+                "--dataset bair writes it with its COMPLETE.json)")
         data = [sorted(join(root, d1, d2, img)
                        for img in os.listdir(join(root, d1, d2))
                        if os.path.splitext(img)[1] == ".png")

@@ -3,11 +3,13 @@ completion check of srvp_tpu/data/base.py).
 
 Train and validation folds come from the packed tree
 `{data_dir}/packed_{nx}/{class}/{video}.npy`, one raw uint8 (T, nx, nx)
-array per video (preprocessing/kth/pack.py), when its `COMPLETE.json` marker
+array per video (data/pack.py), when its `COMPLETE.json` marker
 names the number of videos found; otherwise from the PNG tree
 `{data_dir}/processed_{nx}/{class}/{video}/*.png`, each frame decoded by the
 native PNG decoder (data/native.py; a colour file gives its red channel).
-Both enumerate the videos in the same order, so the seed-42 folds agree.
+Both enumerate the videos in the same order, so the seed-42 folds agree;
+`prefer_packed=False` reads the PNG tree even where a complete packed tree
+stands beside it (srvp_tpu/data/kth.py:121-124).
 Persons 21-25 are the test persons and are left out. An item is a random
 video (drawn again while it is shorter than the window) and a random
 temporal window of it, drawn from the item's RandomState in the JAX
@@ -96,6 +98,12 @@ class KTH(VideoDataset):
                 else vid[t0:t0 + self.seq_len])
         return windows
 
+    def frame_paths(self, index, rng):
+        """The frame files of the training window get_item draws from
+        `rng` (PNG tree)."""
+        vid, t0 = self._sample_window(rng)
+        return vid[t0:t0 + self.seq_len]
+
     def get_item(self, index, rng=None):
         """uint8 (T, nx, nx) video: test item `index`, or a random train
         window drawn from `rng`."""
@@ -133,7 +141,7 @@ class KTH(VideoDataset):
         return out
 
     @classmethod
-    def make_dataset(cls, data_dir, nx, seq_len, train):
+    def make_dataset(cls, data_dir, nx, seq_len, train, prefer_packed=True):
         if not train:
             path = join(data_dir, f"svg_test_set_{seq_len}.npz")
             with np.load(path, allow_pickle=False) as arc:
@@ -142,7 +150,7 @@ class KTH(VideoDataset):
                        seq_len, train)
         packed_root = join(data_dir, f"packed_{nx}")
         found = []
-        for c in cls.classes:
+        for c in cls.classes if prefer_packed else ():
             cdir = join(packed_root, c)
             if os.path.isdir(cdir):
                 found += [(c, f) for f in sorted(
@@ -168,7 +176,8 @@ def png_tree(data_dir, nx, packed_root, n_packed):
         raise FileNotFoundError(
             f"no KTH PNG tree at {root}, and no complete packed tree at "
             f"{packed_root} (its COMPLETE.json must count the {n_packed} "
-            "videos found; preprocessing/kth/pack.py writes it)")
+            "videos found; python -m srvp_tpu_torch.data.pack --dataset kth "
+            "writes it)")
     data = []
     for c in CLASSES:
         for vid in sorted(os.listdir(join(root, c))):

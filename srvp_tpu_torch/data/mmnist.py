@@ -53,6 +53,23 @@ def load_mnist_images(data_dir, train=True, missing_ok=False):
     return [arr[i] for i in range(n)]
 
 
+def load_mnist_labels(data_dir, train=True):
+    """Reads MNIST IDX label files (srvp_tpu/data/mmnist.py:56)."""
+    name = "train-labels-idx1-ubyte" if train else "t10k-labels-idx1-ubyte"
+    path, candidates = _find_idx(data_dir, name)
+    if path is None:
+        raise FileNotFoundError(
+            f"MNIST IDX labels not found under {data_dir} "
+            f"(tried {candidates})")
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic, n = struct.unpack(">II", f.read(8))
+        if magic != 2049:
+            raise ValueError(f"bad IDX magic {magic} in {path}")
+        buf = f.read(n)
+    return np.frombuffer(buf, dtype=np.uint8)
+
+
 def synthetic_digits(n, rng, size=28):
     """Procedural digit-like glyphs for benchmarks/smoke tests when the real
     MNIST archive is unavailable (zero-egress environments).

@@ -13,8 +13,15 @@ checked, as in the native decoders.
 The row filters are undone for a whole batch of frames at once: rows are
 sequential, but each row is one numpy operation over every frame that uses
 the same filter on it, and only Average and Paeth walk the row pixel by
-pixel. The tests hold this module against PIL, and chip_smoke holds the
-native decoder against it.
+pixel (in Python ints where a row has few frames, SCALAR_WIDTH). The tests
+hold this module against PIL, and chip_smoke holds the native decoder
+against it.
+
+The writer (`png_bytes`, `write_png_video`) makes 8-bit gray or RGB files
+with the standard library's zlib, for synthetic frame trees on a machine
+without an image library: row y of frame t goes under row filter (y + t) % 5
+of the five, so that each frame holds every filter and the first row, which
+has no row above, meets each of them over five frames.
 """
 
 import struct
@@ -25,6 +32,11 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 COLOUR_TYPES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray + alpha",
                 6: "RGBA"}
+
+
+# rows of k frames of bpp bytes a pixel with k * bpp at most this walk
+# Average and Paeth in Python ints (_walk_row), wider ones in numpy
+SCALAR_WIDTH = 40
 
 
 class PNGError(ValueError):
@@ -81,6 +93,26 @@ def _paeth(left, up, up_left):
                     np.where(pb <= pc, up, up_left))
 
 
+def _walk_row(kind, src, up, bpp):
+    """Average (3) or Paeth (4) undone on k rows in Python ints: for few
+    frames, cheaper than numpy's calls a pixel."""
+    out = []
+    for s, u in zip(src.tolist(), up.tolist()):
+        row = [0] * len(s)
+        for x in range(len(s)):
+            a = row[x - bpp] if x >= bpp else 0
+            if kind == 3:
+                pred = (a + u[x]) >> 1
+            else:
+                b, c = u[x], (u[x - bpp] if x >= bpp else 0)
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            row[x] = (s[x] + pred) & 255
+        out.append(row)
+    return np.array(out, np.int16).reshape(src.shape)
+
+
 def _defilter_row(kind, src, up, bpp):
     """One row of k frames, (k, width * bpp) int16, undone from filter
     `kind` given the row above (zeros on the first row)."""
@@ -92,6 +124,8 @@ def _defilter_row(kind, src, up, bpp):
                          dtype=np.uint8).reshape(k, n).astype(np.int16)
     if kind == 2:   # Up
         return (src + up) & 255
+    if src.shape[0] * bpp <= SCALAR_WIDTH:
+        return _walk_row(kind, src, up, bpp)
     out = np.empty_like(src)
     left = np.zeros((src.shape[0], bpp), np.int16)
     up_left = left
@@ -150,3 +184,46 @@ def decode_png_batch(paths, h, w, channels):
                           [paths[i] for i in index])
         out[index] = pixels.reshape(len(index), h, w, src_c)[..., :channels]
     return out[..., 0] if channels == 1 else out
+
+
+def png_filtered_rows(img, bpp):
+    """uint8 (H, W * bpp) -> uint8 (5, H, W * bpp): every row under each of
+    the five row filters."""
+    x = img.astype(np.int16)
+    up, left, up_left = (np.zeros_like(x) for _ in range(3))
+    up[1:], left[:, bpp:], up_left[1:, bpp:] = x[:-1], x[:, :-bpp], \
+        x[:-1, :-bpp]
+    return (np.stack([x, x - left, x - up, x - ((left + up) >> 1),
+                      x - _paeth(left, up, up_left)]) & 255).astype(np.uint8)
+
+
+def png_bytes(img, filters):
+    """An 8-bit PNG file of uint8 img, (H, W) gray or (H, W, 3) RGB, row y
+    under row filter filters[y % len(filters)]."""
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else 3
+    kinds = np.array([filters[y % len(filters)] for y in range(h)], np.uint8)
+    rows = png_filtered_rows(img.reshape(h, w * bpp), bpp)[kinds,
+                                                           np.arange(h)]
+    raw = np.concatenate([kinds[:, None], rows], axis=1)
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+    return (SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                         0 if bpp == 1 else 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png_video(vdir, video, name="{:02d}.png"):
+    """Frame t of uint8 video (T, H, W[, 3]) as vdir / name.format(t),
+    under the filters (y + t) % 5. Returns the paths."""
+    vdir.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for t, frame in enumerate(video):
+        paths.append(vdir / name.format(t))
+        paths[-1].write_bytes(png_bytes(frame, [(y + t) % 5
+                                                for y in range(5)]))
+    return paths

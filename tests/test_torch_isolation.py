@@ -1,7 +1,8 @@
 """The PyTorch port imports neither jax nor srvp_tpu, nor PIL (its PNG
 frames go through its own decoder, its GIFs through its own writer), its
-evaluation metrics (LPIPS, I3D, FVD), its serving export and tools and
-its data-parallel modules included, and its entry points refuse CUDA
+evaluation metrics (LPIPS, I3D, FVD), its serving export and tools, its
+data-parallel modules and its data tools (the packers, the test-set makers,
+the loader bench) included, and its entry points refuse CUDA
 where there is none instead of falling back to the CPU."""
 
 import os
@@ -38,7 +39,10 @@ SCRIPT = textwrap.dedent("""
             "srvp_tpu_torch.ops.counter_rng",
             "srvp_tpu_torch.utils.gif", "srvp_tpu_torch.parallel",
             "srvp_tpu_torch.parallel.mesh",
-            "srvp_tpu_torch.parallel.multihost"} <= set(names)
+            "srvp_tpu_torch.parallel.multihost",
+            "srvp_tpu_torch.bench_loader", "srvp_tpu_torch.data.pack",
+            "srvp_tpu_torch.data.synthetic",
+            "srvp_tpu_torch.data.test_sets"} <= set(names)
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401  (its helpers; main() is not run)

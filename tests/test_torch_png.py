@@ -20,9 +20,8 @@ from PIL import Image
 
 import torch
 
-import chip_smoke
 from srvp_tpu.native.loader import decode_png_batch as jax_decode_batch
-from srvp_tpu_torch.data import native, png
+from srvp_tpu_torch.data import native, png, synthetic
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -70,7 +69,7 @@ def test_each_row_filter_matches_pil(tmp_path, kind, bpp):
     img = rng.randint(0, 256, (17, 23) + ((3,) if bpp == 3 else ()),
                       np.uint8)
     img[5] = 255
-    path = write(tmp_path / "f.png", chip_smoke.png_bytes(img, [kind]))
+    path = write(tmp_path / "f.png", png.png_bytes(img, [kind]))
     np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
     np.testing.assert_array_equal(
         png.decode_png_batch([path], 17, 23, bpp)[0], img)
@@ -79,13 +78,13 @@ def test_each_row_filter_matches_pil(tmp_path, kind, bpp):
 
 
 def test_chip_smoke_videos_decode_alike(tmp_path):
-    """chip_smoke's writer (row y of frame t under filter (y + t) % 5) in
+    """The stdlib writer (row y of frame t under filter (y + t) % 5) in
     gray and RGB: the plain decoder, the native one in both layouts and
     the JAX package's native decoder give the frames written, PIL too."""
-    video = chip_smoke.synthetic_rgb_videos(1, 7, 64,
-                                            np.random.RandomState(0))[0]
-    rgb = chip_smoke.write_png_video(tmp_path / "rgb", video)
-    gray = chip_smoke.write_png_video(tmp_path / "gray", video[..., 2])
+    video = synthetic.synthetic_rgb_videos(1, 7, 64,
+                                           np.random.RandomState(0))[0]
+    rgb = png.write_png_video(tmp_path / "rgb", video)
+    gray = png.write_png_video(tmp_path / "gray", video[..., 2])
     for paths, frames, c in ((rgb, video, 3), (gray, video[..., 2], 1)):
         paths = [str(p) for p in paths]
         for p, f in zip(paths, frames):
@@ -103,7 +102,7 @@ def test_red_channel_rule(tmp_path):
     frame[:, :, 0]), not a luma, through every filter."""
     img = np.random.RandomState(2).randint(0, 256, (12, 12, 3), np.uint8)
     path = write(tmp_path / "rgb.png",
-                 chip_smoke.png_bytes(img, [0, 1, 2, 3, 4]))
+                 png.png_bytes(img, [0, 1, 2, 3, 4]))
     want = np.asarray(Image.open(path))[:, :, 0]
     assert not np.array_equal(
         want, np.asarray(Image.open(path).convert("L")))
@@ -118,7 +117,7 @@ def test_native_matches_plain_in_both_layouts(bair_frames, tmp_path,
                                               n_threads):
     """Mixed gray and RGB files read as gray (the red channel), and RGB
     files read as RGB, into the per-frame and the time-major layouts."""
-    gray = [write(tmp_path / f"g{i}.png", chip_smoke.png_bytes(
+    gray = [write(tmp_path / f"g{i}.png", png.png_bytes(
         np.asarray(Image.open(p))[..., 1], [i % 5, 4, 3]))
         for i, p in enumerate(bair_frames[:12])]
     mixed = [p for pair in zip(gray, bair_frames[30:42]) for p in pair]
@@ -146,7 +145,7 @@ def png_with(img, colour, depth=8, interlace=0):
     def chunk(tag, body):
         return (struct.pack(">I", len(body)) + tag + body
                 + struct.pack(">I", zlib.crc32(tag + body)))
-    return (chip_smoke.PNG_SIGNATURE
+    return (png.SIGNATURE
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0,
                                          0, interlace))
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
@@ -163,7 +162,7 @@ def bad_files(tmp_path):
     Image.fromarray(np.dstack([img, img[..., :1]])).save(rgba)
     jpeg = tmp_path / "jpeg.png"
     Image.fromarray(img).save(jpeg, format="JPEG")
-    good = chip_smoke.png_bytes(img, [4])
+    good = png.png_bytes(img, [4])
     corrupt = bytearray(good)
     corrupt[60] ^= 0x55
     return [
@@ -172,16 +171,16 @@ def bad_files(tmp_path):
         (write(tmp_path / "laced.png", png_with(img, 2, interlace=1)), 3),
         (write(tmp_path / "corrupt.png", bytes(corrupt)), 3),
         (write(tmp_path / "cut.png", good[:50]), 3),
-        (write(tmp_path / "small.png", chip_smoke.png_bytes(img[:4], [0])),
+        (write(tmp_path / "small.png", png.png_bytes(img[:4], [0])),
          3),
-        (write(tmp_path / "gray.png", chip_smoke.png_bytes(img[..., 0],
+        (write(tmp_path / "gray.png", png.png_bytes(img[..., 0],
                                                            [0])), 3),
         (str(tmp_path / "missing.png"), 3)]
 
 
 def test_rejected_files_raise_with_their_name(tmp_path):
     good = write(tmp_path / "good.png",
-                 chip_smoke.png_bytes(np.zeros((8, 8, 3), np.uint8), [1]))
+                 png.png_bytes(np.zeros((8, 8, 3), np.uint8), [1]))
     for path, c in bad_files(tmp_path):
         with pytest.raises((ValueError, OSError), match=Path(path).name):
             png.decode_png_batch([good, path], 8, 8, c)
@@ -205,3 +204,20 @@ def test_native_libraries_are_built_apart_and_a_failed_build_raises(
     broken.write_text("this is not C++\n")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.build(broken, "broken")
+
+
+@pytest.mark.parametrize("width", [0, 10**6])
+def test_plain_row_walks_agree(tmp_path, monkeypatch, width):
+    """Average and Paeth rows undone in numpy across the frames (width 0)
+    and in Python ints a frame (every width): PIL's frames, gray and RGB,
+    on batches of 1 to 40 frames under every filter."""
+    monkeypatch.setattr(png, "SCALAR_WIDTH", width)
+    video = synthetic.synthetic_rgb_videos(1, 40, 16,
+                                           np.random.RandomState(1))[0]
+    for frames, c in ((video, 3), (video[..., 1], 1)):
+        paths = [str(p) for p in png.write_png_video(tmp_path / str(c),
+                                                     frames)]
+        for n in (1, 7, 40):
+            want = np.stack([np.asarray(Image.open(p)) for p in paths[:n]])
+            np.testing.assert_array_equal(
+                png.decode_png_batch(paths[:n], 16, 16, c), want)
