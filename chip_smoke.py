@@ -256,12 +256,31 @@ Phases, each of which fails the script:
      set of the test persons' videos made by data/test_sets.py through the
      native and the plain decoders, equal, and read back by KTH's test
      fold.
+ 21. main path, the offline drop (offline_drop_path): a drop in the
+     official layout (srvp_tpu_torch/verify_artifacts.py) written by the
+     port's own writers: phase 17's LPIPS, AlexNet and I3D files, the
+     seeded KTH vgg checkpoint (model.pt, config.json), KTH's test set by
+     data/test_sets.py kth over a synthetic tree of the test persons, the
+     glyph Moving MNIST set by test_sets synthetic, an MNIST IDX file, and
+     BAIR's PNG tree by data/convert.py from TFRecords of seeded 30-frame
+     RGB videos (data/synthetic.write_bair_download). The drop checker's CLI
+     in a child process: every row ok, rc 0, its manifest written; again
+     with --check_manifest: rc 0; one byte of alex.pth flipped: CHANGED, rc
+     1 (restored); a truncated copy of model.pt: INVALID, rc 1. The
+     converted BAIR tree through data/bair.py and the native PNG decoder,
+     bit-equal to the videos in the TFRecords (the mean bytes of a frame
+     printed); then test_main on the drop as the README's recipe runs it
+     (--xp_dir DROP/checkpoints/kth --data_dir DROP/datasets --lpips_dir
+     DROP/lpips --fvd, the I3D npz through SRVP_TPU_I3D_WEIGHTS), 16 videos
+     x 20 samples: finite artifacts, one FVD line, exact launches of
+     kernels 1, 4 and 6.
 test_main runs under cuDNN's deterministic algorithms; phases 6 and 8 run
 its kernel evaluation once more under cuDNN's defaults and print the s per
 batch of both.
 Then it prints one {"kernels": [...]} line (the rows of kernels 1, 4 and 6
 also give `serving_launches`, their launches in phase 18's checks; every
-row `data_tools_launches`, its launches in phase 20's step leg) and, last,
+row `data_tools_launches`, its launches in phase 20's step leg, and
+`drop_launches`, its launches in phase 21's evaluation) and, last,
 the device line.
 It exits non-zero without a result when CUDA is unavailable.
 """
@@ -269,6 +288,7 @@ It exits non-zero without a result when CUDA is unavailable.
 import contextlib
 import copy
 import dataclasses
+import gzip
 import io
 import itertools
 import json
@@ -276,6 +296,7 @@ import os
 import shutil
 import signal
 import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -3599,6 +3620,193 @@ def data_tools_path():
     return rows, counts
 
 
+# the offline-drop phase (21): a drop in the official layout
+# (srvp_tpu_torch/verify_artifacts.py) assembled with the port's writers,
+# verified and its manifest re-checked by the CLI in child processes, two
+# planted faults, the BAIR tree converted from TFRecords read back, then the
+# KTH checkpoint evaluated from the drop with LPIPS and FVD (DROP_VIDEOS
+# videos, DROP_SAMPLES samples)
+DROP_VIDEOS, DROP_SAMPLES = 16, 20
+# BAIR's download in the drop: train and test videos, records a file
+DROP_BAIR = dict(n_train=2, n_test=6, per_file=2)
+DROP_ARTIFACTS = ["lpips-linear-heads", "i3d-kinetics400",
+                  "smmnist-test-set", "kth-test-set", "alexnet-backbone",
+                  "mnist-idx", "checkpoint:kth", "bair-test-set"]
+
+
+def verify_cli(drop, *flags):
+    """The drop checker's CLI in a child process: (exit code, its JSON
+    lines)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "srvp_tpu_torch.verify_artifacts", "--drop",
+         str(drop), *flags], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=CHILD_TIMEOUT_S)
+    try:
+        rows = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    except ValueError:
+        rows = None
+    if rows is None or not rows:
+        print(proc.stdout[-3000:] + proc.stderr[-3000:], flush=True)
+        raise SystemExit(f"verify_artifacts {flags}: rc {proc.returncode}, "
+                         "no JSON rows")
+    return proc.returncode, rows
+
+
+def verify_in_process(drop, *flags):
+    """The drop checker's main in this process: (exit code, JSON lines)."""
+    from srvp_tpu_torch import verify_artifacts
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = verify_artifacts.main(["--drop", str(drop), *flags])
+    return rc, [json.loads(ln) for ln in out.getvalue().splitlines()]
+
+
+def write_drop(drop):
+    """The drop, written by the port's own writers: LPIPS and AlexNet
+    weights, the I3D npz, the seeded KTH checkpoint, KTH's test set by
+    test_sets kth over a synthetic tree of the test persons, the synthetic
+    glyph set by test_sets synthetic, an MNIST IDX file, and BAIR's PNG
+    tree by data.convert from TFRecords. Returns the videos put in the
+    TFRecords, {(fold, file stem, k): video}."""
+    from srvp_tpu_torch.data import convert, synthetic, test_sets
+    from srvp_tpu_torch.data.mmnist import synthetic_digits
+    write_lpips_weights(drop / "lpips", SEED + 50)
+    (drop / "i3d").mkdir(parents=True)
+    write_i3d_weights(drop / "i3d" / "i3d_kinetics400.npz", SEED + 51)
+    xp_dir, _ = seeded_xp(KTH_CONFIG, "drop-kth", DROP_VIDEOS, KTH_NT_GEN,
+                          SEED + 52, test_set=False)
+    shutil.copytree(xp_dir, drop / "checkpoints" / "kth")
+    ds = drop / "datasets"
+    kth_tree = WORK_DIR / "drop_kth_tree"
+    synthetic.write_kth_test_videos(kth_tree, KTH_NT_GEN + 4, noise_amp=14,
+                                    processes=len(os.sched_getaffinity(0)))
+    made = test_sets.main(["kth", "--data_dir", str(kth_tree), "--size",
+                           str(DROP_VIDEOS), "--seq_len", str(KTH_NT_GEN)])
+    ds.mkdir(parents=True)
+    shutil.move(made, ds / f"svg_test_set_{KTH_NT_GEN}.npz")
+    test_sets.main(["synthetic", "--data_dir", str(ds), "--n_videos",
+                    str(DROP_VIDEOS)])
+    (drop / "mnist").mkdir()
+    digits = np.stack(synthetic_digits(16, np.random.RandomState(SEED + 53)))
+    with gzip.open(drop / "mnist" / "train-images-idx3-ubyte.gz", "wb") as f:
+        f.write(struct.pack(">IIII", 2051, *digits.shape) + digits.tobytes())
+    videos = synthetic.write_bair_download(ds / "bair", **DROP_BAIR)
+    convert.main(["bair", "--data_dir", str(ds / "bair")])
+    return videos
+
+
+def flip_tensor_byte(path):
+    """Flips the lowest bit of the first value of the first tensor in a
+    torch file (a finite value stays finite); returns the byte's offset."""
+    sd = torch.load(path, weights_only=True)
+    first = next(iter(sd.values())).contiguous().numpy().tobytes()
+    data = bytearray(path.read_bytes())
+    pos = data.find(first)
+    if pos < 0:
+        raise SystemExit(f"{path}: tensor bytes not found")
+    data[pos] ^= 1
+    path.write_bytes(bytes(data))
+    return pos
+
+
+def offline_drop_path():
+    """Phase 21 (the module docstring). Returns the evaluation's launches
+    and the summary."""
+    from srvp_tpu_torch.data import native
+    from srvp_tpu_torch.data.bair import BAIR
+    t_phase = time.perf_counter()
+    drop = WORK_DIR / "drop"
+    for d in (drop, WORK_DIR / "drop_bad", WORK_DIR / "drop_kth_tree"):
+        shutil.rmtree(d, ignore_errors=True)
+    videos = write_drop(drop)
+    t_written = time.perf_counter() - t_phase
+
+    # 1-2: the CLI records the manifest, then re-checks the drop against it
+    manifest = WORK_DIR / "drop_manifest.json"
+    rc, rows = verify_cli(drop, "--manifest", str(manifest))
+    artifacts = [r for r in rows if "artifact" in r]
+    if rc or [r["artifact"] for r in artifacts] != DROP_ARTIFACTS or any(
+            r["status"] != "ok" for r in artifacts):
+        raise SystemExit(f"verify_artifacts on the drop: rc {rc}, {rows}")
+    rc_check, check_rows = verify_cli(drop, "--check_manifest",
+                                      str(manifest))
+    checked = [r["manifest_check"] for r in check_rows
+               if "manifest_check" in r]
+    if rc_check or len(checked) != len(DROP_ARTIFACTS) or any(
+            r["status"] != "ok" for r in checked):
+        raise SystemExit(f"--check_manifest: rc {rc_check}, {check_rows}")
+    # 3: one byte of alex.pth flipped reads CHANGED; the byte restored
+    alex = drop / "lpips" / "alex.pth"
+    pristine = alex.read_bytes()
+    flip_tensor_byte(alex)
+    rc_flip, flip_rows = verify_in_process(drop, "--check_manifest",
+                                           str(manifest), "--device", "cuda")
+    alex.write_bytes(pristine)
+    flipped = {r["manifest_check"]["path"]: r["manifest_check"]["status"]
+               for r in flip_rows if "manifest_check" in r}
+    if rc_flip != 1 or flipped.pop("lpips/alex.pth") != "CHANGED" or set(
+            flipped.values()) != {"ok"}:
+        raise SystemExit(f"flipped byte of alex.pth: rc {rc_flip}, "
+                         f"{flip_rows}")
+    # 4: a truncated copy of model.pt reads INVALID
+    bad = WORK_DIR / "drop_bad" / "checkpoints" / "kth"
+    shutil.copytree(drop / "checkpoints" / "kth", bad)
+    data = (bad / "model.pt").read_bytes()
+    (bad / "model.pt").write_bytes(data[:len(data) // 2])
+    rc_bad, bad_rows = verify_in_process(bad.parent.parent, "--device",
+                                         "cuda")
+    if rc_bad != 1 or [r.get("status") for r in bad_rows[:1]] != [
+            "INVALID"] or bad_rows[0]["artifact"] != "checkpoint:kth":
+        raise SystemExit(f"truncated model.pt: rc {rc_bad}, {bad_rows}")
+
+    # 5: the converted BAIR tree through the BAIR loader and the native PNG
+    # decoder, bit for bit the videos put into the TFRecords
+    fold = BAIR.make_dataset(str(drop / "datasets" / "bair"), 30, False)
+    want = [videos[k] for k in sorted(k for k in videos if k[0] == "test")]
+    before = native.decoded["frames"]
+    got = fold.get_batch_seeded(list(range(len(fold))), [0] * len(fold))
+    decoded = native.decoded["frames"] - before
+    frames = [Path(p) for v in fold.data for p in v]
+    frame_bytes = float(np.mean([p.stat().st_size for p in frames]))
+    equal = got.shape == (len(want), 30, 64, 64, 3) and np.array_equal(
+        got, np.stack(want))
+    if fold.packed or len(fold) != len(want) or decoded != 30 * len(want) \
+            or not equal:
+        raise SystemExit(f"converted BAIR tree: {len(fold)} videos, "
+                         f"{decoded} frames decoded, equal {equal}")
+
+    # 6: the README's drop recipe: test_main on the verified drop
+    i3d_path = drop / "i3d" / "i3d_kinetics400.npz"
+    with mock.patch.dict(os.environ, SRVP_TPU_I3D_WEIGHTS=str(i3d_path)):
+        ev = metrics_cli(KTH_CONFIG, drop / "checkpoints" / "kth",
+                         drop / "datasets", KTH_NT_GEN, DROP_VIDEOS,
+                         DROP_SAMPLES, ("--lpips_dir", str(drop / "lpips"),
+                                        "--fvd"))
+    counts = klaunches.counts()
+    summary = dict(
+        artifacts=len(artifacts), manifest_rows=len(checked),
+        flipped="CHANGED", truncated="INVALID",
+        bair=dict(videos=len(want), frames=len(frames),
+                  mean_frame_bytes=frame_bytes,
+                  tfrecord_bytes=sum(p.stat().st_size for p in (
+                      drop / "datasets" / "bair").rglob("*.tfrecords"))),
+        evaluation=dict(videos=DROP_VIDEOS, samples=DROP_SAMPLES,
+                        s_per_batch=ev[1][0], wall_s=ev[2], fvd=ev[3],
+                        lpips_mean=float(ev[0]["results"]["lpips"].mean()),
+                        launches=counts),
+        write_s=t_written, seconds=time.perf_counter() - t_phase)
+    print("offline_drop " + json.dumps(summary), flush=True)
+    print(f"offline drop: {len(artifacts)} artifacts ok, manifest re-checked, "
+          f"a flipped byte CHANGED, a truncated model.pt INVALID; BAIR "
+          f"{len(frames)} converted frames of {frame_bytes:.1f} bytes on "
+          f"average, bit-equal through the native decoder; KTH evaluation "
+          f"from the drop {ev[1][0]:.3f} s per batch of {DROP_VIDEOS} x "
+          f"{DROP_SAMPLES} samples with LPIPS and FVD; phase "
+          f"{summary['seconds']:.1f} s", flush=True)
+    return counts, summary
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                bound_ms, bound_by, library_ms=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3739,6 +3947,9 @@ def main():
     # packers and a KTH test set
     torch.cuda.empty_cache()
     _, tools_counts = data_tools_path()
+    # the offline drop: written, verified, converted and evaluated from
+    torch.cuda.empty_cache()
+    drop_counts, drop = offline_drop_path()
     # launches of one call at each checked batch, over the symbolic
     # artifacts
     served_counts = {}
@@ -3795,8 +4006,9 @@ def main():
             conv_counts[counted], row["max_abs_err"], row["ms"],
             row["plain_ms"], row["bound_ms"], row["bound_by"],
             row["library_ms"]))
-    for row in kernels:     # launches of phase 20's step leg
+    for row in kernels:     # launches of phase 20's step leg and phase 21
         row["data_tools_launches"] = tools_counts.get(row["name"], 0)
+        row["drop_launches"] = drop_counts.get(row["name"], 0)
     print(f"conv stage, {len(conv_rows)} KTH vgg sites at N="
           f"{conv_rows[0]['shape'][0]} in fp32: kernel "
           f"{sum(r['ms'] for r in conv_rows):.3f} ms, cuDNN "
@@ -3884,6 +4096,10 @@ def main():
                   f"{r['latency_p50_ms']:.3f} ms (p95 "
                   f"{r['latency_p95_ms']:.3f}), {r['frames_per_sec']:.1f} "
                   f"frames/s", flush=True)
+    print(f"offline drop (phase 21): {drop['artifacts']} artifacts "
+          f"verified, BAIR frames of {drop['bair']['mean_frame_bytes']:.1f} "
+          f"bytes, evaluation {drop['evaluation']['s_per_batch']:.3f} s per "
+          f"batch with LPIPS and FVD, {drop['seconds']:.1f} s", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

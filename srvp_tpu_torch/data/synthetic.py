@@ -17,6 +17,9 @@ Human3.6M trees of chip_smoke.py's phases.
   `write_bair_trees`, `write_human_tree`: moving figures and discs,
   written once as a PNG tree and once packed, or as Human3.6M's npz
   videos.
+- `write_bair_download`: BAIR's softmotion30_44k TFRecords
+  (data/tfrecord.py), the bench frames at `noise_amp`, that
+  data/convert.py turns into the PNG tree.
 """
 
 import itertools
@@ -29,6 +32,7 @@ import numpy as np
 
 from srvp_tpu_torch.data.kth import CLASSES
 from srvp_tpu_torch.data.png import write_png_video
+from srvp_tpu_torch.data.tfrecord import encode_example, write_tfrecord
 
 # the JAX bench's tree sizes (scripts/bench_loader.py:63, :83)
 BENCH_KTH_VIDEOS, BENCH_KTH_FRAMES = 120, 120
@@ -113,6 +117,35 @@ def write_bench_bair_tree(root, n_videos=BENCH_BAIR_VIDEOS, noise_amp=0,
              / str(i % 32), "{:02d}.png", i, BAIR_FRAMES, True, noise_amp, 64)
             for i in range(n_videos)]
     return write_bench_videos(jobs, processes)
+
+
+def write_bair_download(data_dir, n_train, n_test, per_file=2, noise_amp=14):
+    """BAIR's download under `data_dir/softmotion30_44k/{train,test}/
+    traj_{a}_to_{b}.tfrecords`, `per_file` records a file, each a video of
+    30 bench frames (RGB at `noise_amp`) under `{t}/image_aux1/encoded`
+    (raw bytes), with a 4-float `{t}/action` and a 3-float
+    `{t}/endeffector_pos`. Returns {(fold, file stem, k from 1): uint8
+    (30, 64, 64, 3)}."""
+    videos = {}
+    for fold, n, first in (("train", n_train, 0), ("test", n_test, 10_000)):
+        fdir = Path(data_dir) / "softmotion30_44k" / fold
+        fdir.mkdir(parents=True, exist_ok=True)
+        for a in range(0, n, per_file):
+            stem = f"traj_{a}_to_{a + per_file - 1}"
+            records = []
+            for k in range(1, min(per_file, n - a) + 1):
+                i = first + a + k - 1
+                video = bench_video(i, BAIR_FRAMES, rgb=True,
+                                    noise_amp=noise_amp)
+                videos[fold, stem, k] = video
+                features = {}
+                for t, frame in enumerate(video):
+                    features[f"{t}/image_aux1/encoded"] = [frame.tobytes()]
+                    features[f"{t}/action"] = [0.01 * i, -0.5, 0.25, t / 30]
+                    features[f"{t}/endeffector_pos"] = [0.5, -0.25, 0.125]
+                records.append(encode_example(features))
+            write_tfrecord(fdir / f"{stem}.tfrecords", records)
+    return videos
 
 
 def synthetic_kth_videos(n, n_frames, nx, rng):

@@ -9,6 +9,10 @@ arrays.
     python -m srvp_tpu_torch.data.test_sets mmnist --data_dir DIR
         [--seq_len 100] [--seed 42] [--deterministic] [--digits 2]
         [--frame_size 64] [--max_speed 4]
+    python -m srvp_tpu_torch.data.test_sets synthetic --data_dir DIR
+        [--n_videos 128] [--seq_len 30] [--nx 64] [--ndigits 2]
+        [--max_speed 4] [--deterministic] [--digit_seed 1]
+        [--traj_seed 77777] [--n_glyphs 1000]
 
 KTH: `size` windows of `seq_len` frames, each of a video drawn from a
 RandomState(seed) in the reference order (action, person 21-25, trial 1-4,
@@ -24,6 +28,14 @@ data/mmnist.MovingMNIST drawn from the same generator; written to
 --deterministic) as `sequences` uint8 (T, N, H, W), `latents` (T, N,
 digits, 4: rounded position and speed), `labels` uint8 (N, digits) and
 `digits` uint8 (N, digits, 28, 28).
+
+Synthetic Moving MNIST (counterpart of scripts/make_synthetic_test_set.py),
+for a machine without MNIST: `n_glyphs` procedural glyphs
+(data/mmnist.synthetic_digits from RandomState(digit_seed); the trainer's
+--allow_synthetic draws its glyphs from seed 0, so the default 1 holds the
+set out at the glyph level), video i drawn by MovingMNIST.get_item from
+RandomState(traj_seed + i); written to `DIR/{s}mmnist_test_{ndigits}
+digits_{nx}.npz` as `sequences` uint8 (T, N, H, W).
 """
 
 import argparse
@@ -34,7 +46,7 @@ import numpy as np
 
 from srvp_tpu_torch.data.kth import CLASSES
 from srvp_tpu_torch.data.mmnist import (MovingMNIST, load_mnist_images,
-                                        load_mnist_labels)
+                                        load_mnist_labels, synthetic_digits)
 from srvp_tpu_torch.data.pack import decode_frames
 
 
@@ -112,6 +124,25 @@ def make_mmnist_test_set(data_dir, seq_len=100, seed=42, deterministic=False,
     return save_file
 
 
+def make_synthetic_test_set(data_dir, n_videos=128, seq_len=30, nx=64,
+                             ndigits=2, max_speed=4, deterministic=False,
+                             digit_seed=1, traj_seed=77777, n_glyphs=1000):
+    """Writes {s}mmnist_test_{ndigits}digits_{nx}.npz of synthetic glyphs;
+    returns its path."""
+    digits = synthetic_digits(n_glyphs, np.random.RandomState(digit_seed))
+    gen = MovingMNIST(digits, nx, seq_len, max_speed, deterministic, ndigits,
+                      True)
+    videos = np.stack([gen.get_item(0, np.random.RandomState(traj_seed + i))
+                       for i in range(n_videos)])
+    name = "mmnist" if deterministic else "smmnist"
+    out = join(data_dir, f"{name}_test_{ndigits}digits_{nx}.npz")
+    os.makedirs(data_dir, exist_ok=True)
+    np.savez_compressed(out, sequences=np.transpose(videos, (1, 0, 2, 3)))
+    print(f"wrote {out}: sequences {(seq_len, n_videos, nx, nx)} uint8",
+          flush=True)
+    return out
+
+
 def create_args():
     p = argparse.ArgumentParser(
         prog="python -m srvp_tpu_torch.data.test_sets",
@@ -158,14 +189,33 @@ def create_args():
                     help="Size of generated frames.")
     mm.add_argument("--max_speed", type=int, metavar="SPEED", default=4,
                     help="Maximum speed of generated trajectories.")
+    syn = sub.add_parser("synthetic", formatter_class=fmt,
+                         help="Moving MNIST of procedural glyphs, for a "
+                              "machine without MNIST.")
+    syn.add_argument("--data_dir", required=True,
+                     help="Output dir; writes {smmnist|mmnist}_test_"
+                          "{ndigits}digits_{nx}.npz")
+    syn.add_argument("--n_videos", type=int, default=128)
+    syn.add_argument("--seq_len", type=int, default=30)
+    syn.add_argument("--nx", type=int, default=64)
+    syn.add_argument("--ndigits", type=int, default=2)
+    syn.add_argument("--max_speed", type=int, default=4)
+    syn.add_argument("--deterministic", action="store_true")
+    syn.add_argument("--digit_seed", type=int, default=1,
+                     help="Glyph-bank seed (the trainer's --allow_synthetic "
+                          "uses 0: keep them different for a held-out set)")
+    syn.add_argument("--traj_seed", type=int, default=77777)
+    syn.add_argument("--n_glyphs", type=int, default=1000)
     return p
+
+
+MAKERS = {"kth": make_kth_test_set, "mmnist": make_mmnist_test_set,
+          "synthetic": make_synthetic_test_set}
 
 
 def main(argv=None):
     args = vars(create_args().parse_args(argv))
-    if args.pop("dataset") == "kth":
-        return make_kth_test_set(**args)
-    return make_mmnist_test_set(**args)
+    return MAKERS[args.pop("dataset")](**args)
 
 
 if __name__ == "__main__":

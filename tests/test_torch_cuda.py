@@ -11,8 +11,11 @@ non-contiguous input, a tensor past 2^31 elements), and the conv stage,
 kernels 8 and 9 (sizes that are no tile multiple, every row on an edge,
 one input channel, n_valid < N, bf16, the same bits on every run, an input
 past 2^31 elements); the smoke's one-step check on the KTH model, which
-must fail on a planted fault in the upsample backward; and dispatch windows,
-a CUDA graph of training steps against the same steps run singly.
+must fail on a planted fault in the upsample backward; dispatch windows,
+a CUDA graph of training steps against the same steps run singly; and the
+offline-drop tools on the card's machine: the drop checker loading a seeded
+KTH model.pt on the card (a wrong config refused), and a BAIR tree converted
+from TFRecords decoded by the native PNG decoder to the records' bytes.
 
 These tests need an NVIDIA GPU with nvcc (sm_90a); elsewhere they skip.
 Run them on the card with:
@@ -21,6 +24,7 @@ Run them on the card with:
 """
 
 import functools
+import json
 import shutil
 
 import numpy as np
@@ -29,7 +33,7 @@ import torch
 
 import chip_smoke
 from srvp_tpu_torch import train_lib, train_main
-from srvp_tpu_torch.config import SRVPConfig, strict_fp32
+from srvp_tpu_torch.config import SRVPConfig, model_config, strict_fp32
 from srvp_tpu_torch.data.device_compose import stack_batches, to_device
 from srvp_tpu_torch.kernels import build as kbuild
 from srvp_tpu_torch.kernels import conv_stage as kcs
@@ -39,6 +43,7 @@ from srvp_tpu_torch.kernels import rollout as krollout
 from srvp_tpu_torch.kernels import rollout_train as krt
 from srvp_tpu_torch.kernels import spatial as ksp
 from srvp_tpu_torch.models.mlp import MLP
+from srvp_tpu_torch.models.srvp import SRVP
 
 pytestmark = pytest.mark.cuda
 
@@ -773,3 +778,32 @@ def test_graph_safe_adam_is_adam_bit_for_bit(cuda):
     for a, b in zip(opts["adam"].state.values(), opts["safe"].state.values()):
         assert all(torch.equal(a[k], b[k])
                    for k in ("step", "exp_avg", "exp_avg_sq"))
+
+
+def test_verify_artifacts_loads_checkpoint_on_the_card(cuda, tmp_path):
+    from srvp_tpu_torch import verify_artifacts
+    xp = tmp_path / "checkpoints" / "kth"
+    xp.mkdir(parents=True)
+    cfg = chip_smoke.KTH_CONFIG
+    (xp / "config.json").write_text(json.dumps(cfg))
+    torch.manual_seed(0)
+    torch.save(SRVP(model_config(cfg)).state_dict(), xp / "model.pt")
+    rows, ok = verify_artifacts.verify_drop(str(tmp_path))
+    assert ok and rows[0]["detail"].endswith("loaded on cuda"), rows
+    (xp / "config.json").write_text(json.dumps(dict(cfg, archi="dcgan",
+                                                    skipco=False)))
+    rows, ok = verify_artifacts.verify_drop(str(tmp_path))
+    assert not ok and rows[0]["status"] == "INVALID", rows
+
+
+def test_converted_bair_tree_decodes_natively(cuda, tmp_path):
+    from srvp_tpu_torch.data import convert, native, synthetic
+    from srvp_tpu_torch.data.bair import BAIR
+    videos = synthetic.write_bair_download(tmp_path, 1, 5)
+    convert.main(["bair", "--data_dir", str(tmp_path)])
+    fold = BAIR.make_dataset(str(tmp_path), 30, train=False)
+    before = native.decoded["frames"]
+    got = fold.get_batch_seeded(list(range(5)), [0] * 5)
+    assert native.decoded["frames"] - before == 5 * 30
+    want = [videos[k] for k in sorted(k for k in videos if k[0] == "test")]
+    np.testing.assert_array_equal(got, np.stack(want))

@@ -1,8 +1,9 @@
 """The PyTorch port imports neither jax nor srvp_tpu, nor PIL (its PNG
 frames go through its own decoder, its GIFs through its own writer), its
 evaluation metrics (LPIPS, I3D, FVD), its serving export and tools, its
-data-parallel modules and its data tools (the packers, the test-set makers,
-the loader bench) included, and its entry points refuse CUDA
+data-parallel modules, its data tools (the packers, the test-set makers,
+the loader bench) and its offline-drop tools (the drop checker, the
+TFRecord reader, the BAIR converter) included, and its entry points refuse CUDA
 where there is none instead of falling back to the CPU."""
 
 import os
@@ -42,7 +43,10 @@ SCRIPT = textwrap.dedent("""
             "srvp_tpu_torch.parallel.multihost",
             "srvp_tpu_torch.bench_loader", "srvp_tpu_torch.data.pack",
             "srvp_tpu_torch.data.synthetic",
-            "srvp_tpu_torch.data.test_sets"} <= set(names)
+            "srvp_tpu_torch.data.test_sets",
+            "srvp_tpu_torch.verify_artifacts",
+            "srvp_tpu_torch.data.tfrecord",
+            "srvp_tpu_torch.data.convert"} <= set(names)
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401  (its helpers; main() is not run)

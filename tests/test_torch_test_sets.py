@@ -1,13 +1,16 @@
 """The port's test-set makers (srvp_tpu_torch/data/test_sets.py) against
-preprocessing/{kth,mmnist}/make_test_set.py on the CPU: for the same seed
-and inputs (a tiny KTH PNG tree of the test persons, written by PIL and by
-the port's writer; MNIST IDX files of 20 digits written here) the npz
-arrays are equal bit for bit, through the native decoder and `--plain`;
-the port's evaluation datasets read what the port's makers write."""
+preprocessing/{kth,mmnist}/make_test_set.py and scripts/
+make_synthetic_test_set.py on the CPU: for the same seed and inputs (a tiny
+KTH PNG tree of the test persons, written by PIL and by the port's writer;
+MNIST IDX files of 20 digits written here; the same flags of the synthetic
+glyph set) the npz arrays are equal bit for bit, through the native decoder
+and `--plain`; the port's evaluation datasets read what the port's makers
+write."""
 
 import argparse
 import gzip
 import struct
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import torch
 
 from preprocessing.kth import make_test_set as jax_kth_test_set
 from preprocessing.mmnist import make_test_set as jax_mmnist_test_set
+from scripts import make_synthetic_test_set as jax_synthetic_test_set
 from srvp_tpu_torch.data import mmnist_test, native, test_sets
 from srvp_tpu_torch.data.kth import CLASSES, KTH
 from srvp_tpu_torch.data.mmnist import load_mnist_labels
@@ -138,3 +142,35 @@ def test_mmnist_test_set_matches_jax(tmp_path, deterministic):
     batches = list(mmnist_test.iterate_batches(seqs, 4))
     assert [b.shape for b in batches] == [(10, 4, 64, 64, 1)] * 2 + [
         (10, 2, 64, 64, 1)]
+
+
+SYNTHETIC_CASES = {
+    "default": [],
+    "deterministic": ["--deterministic", "--n_glyphs", "50"],
+    "seeds": ["--digit_seed", "7", "--traj_seed", "123", "--n_glyphs", "50"],
+    "one-digit-32": ["--ndigits", "1", "--nx", "32", "--seq_len", "12",
+                     "--max_speed", "2", "--n_glyphs", "50"],
+}
+
+
+@pytest.mark.parametrize("case", list(SYNTHETIC_CASES))
+def test_synthetic_test_set_matches_jax(case, tmp_path, monkeypatch):
+    flags = ["--n_videos", "3", *SYNTHETIC_CASES[case]]
+    monkeypatch.setattr(sys, "argv", ["make_synthetic_test_set.py",
+                                      "--data_dir", str(tmp_path / "jax"),
+                                      *flags])
+    jax_synthetic_test_set.main()
+    path = test_sets.main(["synthetic", "--data_dir", str(tmp_path / "port"),
+                           *flags])
+    name = path.rsplit("/", 1)[-1]
+    ref, ours = load(tmp_path / "jax" / name), load(path)
+    nx, ndigits = (32, 1) if case == "one-digit-32" else (64, 2)
+    assert name == ("mmnist" if case == "deterministic" else "smmnist") \
+        + f"_test_{ndigits}digits_{nx}.npz"
+    assert ours["sequences"].shape == (12 if nx == 32 else 30, 3, nx, nx)
+    assert ours["sequences"].max() > 0
+    assert_same_arrays(ours, ref)
+    if nx == 64 and ndigits == 2:
+        seqs = mmnist_test.load_test_sequences(str(tmp_path / "port"), 64, 2,
+                                               case == "deterministic")
+        np.testing.assert_array_equal(seqs, ref["sequences"])
