@@ -100,7 +100,8 @@ def create_args():
                         "them).")
     r.add_argument("--profile_dir", type=str, metavar="DIR", default=None,
                    help="Write a torch.profiler trace of steps 10-15 to "
-                        "DIR.")
+                        "DIR, with the program's srvp.* spans of the "
+                        "main thread.")
     r.add_argument("--resume", action="store_true",
                    help="Continue from the train state in save_path (same "
                         "--seed for the same data stream).")

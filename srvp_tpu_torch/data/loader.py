@@ -20,6 +20,12 @@ and the item seeds stay the global batch's, and the rank makes only its
 contiguous slice of every batch (`rows`), whose global positions reach the
 item seeds and the batch hooks; so the ranks' slices concatenate bit for
 bit to the unsharded batch.
+
+While tracing is on in the iterating thread (utils/trace.py), each take
+is a `srvp.data.wait` span around the queue's get and adds to the
+counters `srvp.data.takes` and `srvp.data.ready` (the batches already
+queued); the take hands that state to the producer, whose next batches
+are `srvp.data.produce` spans.
 """
 
 import queue
@@ -29,6 +35,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from srvp_tpu_torch.data.base import collate_uint8
+from srvp_tpu_torch.utils import trace
 
 PREFETCH = 2   # batches made ahead of the consumer
 
@@ -115,6 +122,7 @@ class DataLoader:
         order = epoch_order(len(self.dataset), self.seed, epoch)
         out_q = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
+        traced = [False]    # the consumer's tracing state, at its last take
 
         def producer():
             try:
@@ -122,7 +130,9 @@ class DataLoader:
                     for b in range(start, len(self)):
                         if stop.is_set():
                             return
-                        out_q.put(self._batch(order, epoch, b, pool))
+                        with trace.span("srvp.data.produce", on=traced[0]):
+                            batch = self._batch(order, epoch, b, pool)
+                        out_q.put(batch)
                 out_q.put(None)
             except BaseException as e:   # raised again in the consumer
                 out_q.put(_ProducerError(e))
@@ -132,7 +142,12 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                batch = out_q.get()
+                traced[0] = trace.active()
+                if traced[0]:
+                    trace.count("srvp.data.takes")
+                    trace.count("srvp.data.ready", out_q.qsize())
+                with trace.span("srvp.data.wait"):
+                    batch = out_q.get()
                 if batch is None:
                     return
                 if isinstance(batch, _ProducerError):

@@ -17,6 +17,14 @@ eager `SRVP.generate` loop runs on the same noise. Frames are encoded and
 decoded in `compute_dtype` (the frames' own dtype, float32, by default, as
 the evaluation CLI runs), the latent model in the frames' dtype; the
 predictions are clipped and scored in float32.
+
+Each batch of run_test is a `srvp.eval.batch` span (utils/trace.py)
+holding the spans of its phases: `srvp.eval.input` (padding, the host's
+uint8 copies, the copy to the device), per chunk `srvp.eval.latents`
+(opened twice: the noise drawn in run_test, then sample_latents in
+compute_chunk), `srvp.eval.decode` (both decodes), `srvp.eval.score`
+(PSNR, SSIM, LPIPS) and `srvp.eval.select` (select_update), then
+`srvp.eval.gather` (the selection to the host and to rank 0).
 """
 
 import time
@@ -29,6 +37,7 @@ from srvp_tpu_torch.metrics.pixel import frame_mse, psnr_from_mse
 from srvp_tpu_torch.metrics.ssim import video_ssim
 from srvp_tpu_torch.models.lstm import lstm_apply
 from srvp_tpu_torch.parallel import mesh, multihost
+from srvp_tpu_torch.utils import trace
 
 LOWER_BETTER = {"lpips": True, "psnr": False, "ssim": False}
 
@@ -113,27 +122,30 @@ def compute_chunk(model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
     """
     bsz = x_cond.shape[1]
     compute_dtype = compute_dtype or x_cond.dtype
-    w_c, y_inf, y_gen, skips = sample_latents(
-        model, x_cond, n_samples, x_target.shape[0] + 1, o_inf, o_gen, eps,
-        use_kernel_rollout, compute_dtype)
-    # conditioning reconstruction of sample 0 only: rows b*S + 0
-    x_rec = model.decode(w_c, y_inf[:, ::n_samples].to(compute_dtype),
-                         skips).float()
-    skips_f = (None if skips is None
-               else [fold(s, n_samples, 0) for s in skips])
-    x_pred = model.decode(fold(w_c, n_samples, 0),
-                          y_gen[1:].to(compute_dtype),
-                          skips_f).float().clamp(0.0, 1.0)
+    with trace.span("srvp.eval.latents"):
+        w_c, y_inf, y_gen, skips = sample_latents(
+            model, x_cond, n_samples, x_target.shape[0] + 1, o_inf, o_gen,
+            eps, use_kernel_rollout, compute_dtype)
+    with trace.span("srvp.eval.decode"):
+        # conditioning reconstruction of sample 0 only: rows b*S + 0
+        x_rec = model.decode(w_c, y_inf[:, ::n_samples].to(compute_dtype),
+                             skips).float()
+        skips_f = (None if skips is None
+                   else [fold(s, n_samples, 0) for s in skips])
+        x_pred = model.decode(fold(w_c, n_samples, 0),
+                              y_gen[1:].to(compute_dtype),
+                              skips_f).float().clamp(0.0, 1.0)
 
     t_pred = x_pred.shape[0]
-    x_target_f = fold(x_target, n_samples, 1)
-    psnr = psnr_from_mse(frame_mse(x_pred, x_target_f)).mean(2).mean(0)
-    ssim_v = video_ssim(x_pred, x_target_f).mean(2).mean(0)
-    metrics = {"psnr": psnr.reshape(bsz, n_samples).T,
-               "ssim": ssim_v.reshape(bsz, n_samples).T}
-    if lpips_fn is not None:
-        metrics["lpips"] = lpips_fn(x_pred, x_target_f).mean(0) \
-            .reshape(bsz, n_samples).T
+    with trace.span("srvp.eval.score"):
+        x_target_f = fold(x_target, n_samples, 1)
+        psnr = psnr_from_mse(frame_mse(x_pred, x_target_f)).mean(2).mean(0)
+        ssim_v = video_ssim(x_pred, x_target_f).mean(2).mean(0)
+        metrics = {"psnr": psnr.reshape(bsz, n_samples).T,
+                   "ssim": ssim_v.reshape(bsz, n_samples).T}
+        if lpips_fn is not None:
+            metrics["lpips"] = lpips_fn(x_pred, x_target_f).mean(0) \
+                .reshape(bsz, n_samples).T
     x_pred_u8 = ((x_pred * 255.0).to(torch.uint8)
                  .reshape((t_pred, bsz, n_samples) + x_pred.shape[2:])
                  .permute(2, 1, 0, 3, 4, 5))
@@ -199,7 +211,9 @@ def select_chunk(carry, model, x_cond, x_target, n_samples, chunk_start,
         model, x_cond, x_target, n_samples, o_inf, o_gen, eps,
         use_kernel_rollout=use_kernel_rollout, compute_dtype=compute_dtype,
         lpips_fn=lpips_fn)
-    return select_update(carry, x_pred_u8, x_rec_u8, metrics, chunk_start)
+    with trace.span("srvp.eval.select"):
+        return select_update(carry, x_pred_u8, x_rec_u8, metrics,
+                             chunk_start)
 
 
 def _host_u8(x):
@@ -249,31 +263,38 @@ def run_test(model, batches, nt_cond, nt_test, n_samples, chunk, generator,
 
     for b_idx, batch in enumerate(batches):
         t0 = time.perf_counter()
-        x = np.asarray(batch)[:nt_test]
-        real_bsz = bsz = x.shape[1]
-        if pad_to is not None:
-            if real_bsz > pad_to:
-                raise ValueError(f"batch of {real_bsz} > pad_to {pad_to}")
-            x, _ = mesh.pad_to_multiple(x, pad_to)
-            bsz = pad_to
-        lo, hi = multihost.local_batch_slice(bsz, rank, count)
-        x_dev = torch.from_numpy(np.ascontiguousarray(x[:, lo:hi])).to(device)
-        x_cond, x_target = x_dev[:nt_cond], x_dev[nt_cond:]
-        cond.append(_host_u8(x[:nt_cond, :real_bsz]))
-        gt.append(_host_u8(x[nt_cond:, :real_bsz]))
+        with trace.span("srvp.eval.batch"):
+            with trace.span("srvp.eval.input"):
+                x = np.asarray(batch)[:nt_test]
+                real_bsz = bsz = x.shape[1]
+                if pad_to is not None:
+                    if real_bsz > pad_to:
+                        raise ValueError(f"batch of {real_bsz} > pad_to "
+                                         f"{pad_to}")
+                    x, _ = mesh.pad_to_multiple(x, pad_to)
+                    bsz = pad_to
+                lo, hi = multihost.local_batch_slice(bsz, rank, count)
+                x_dev = torch.from_numpy(
+                    np.ascontiguousarray(x[:, lo:hi])).to(device)
+                x_cond, x_target = x_dev[:nt_cond], x_dev[nt_cond:]
+                cond.append(_host_u8(x[:nt_cond, :real_bsz]))
+                gt.append(_host_u8(x[nt_cond:, :real_bsz]))
 
-        carry = init_select_carry(metric_names, hi - lo, t_pred, nt_cond,
-                                  x.shape[2:], n_random, device)
-        for c in range(n_chunks):
-            eps = chunk_noise(cfg, bsz, chunk, nt_cond, nt_test, o_inf, o_gen,
-                              generator, device, rows=(lo, hi))
-            carry = select_chunk(carry, model, x_cond, x_target, chunk,
-                                 c * chunk, o_inf, o_gen, eps,
-                                 use_kernel_rollout=use_kernel_rollout,
-                                 compute_dtype=compute_dtype,
-                                 lpips_fn=lpips_fn)
-        carry = {k: v.cpu().numpy() for k, v in carry.items()}
-        ranks = multihost.gather_to_primary(carry)
+            carry = init_select_carry(metric_names, hi - lo, t_pred, nt_cond,
+                                      x.shape[2:], n_random, device)
+            for c in range(n_chunks):
+                with trace.span("srvp.eval.latents"):
+                    eps = chunk_noise(cfg, bsz, chunk, nt_cond, nt_test,
+                                      o_inf, o_gen, generator, device,
+                                      rows=(lo, hi))
+                carry = select_chunk(carry, model, x_cond, x_target, chunk,
+                                     c * chunk, o_inf, o_gen, eps,
+                                     use_kernel_rollout=use_kernel_rollout,
+                                     compute_dtype=compute_dtype,
+                                     lpips_fn=lpips_fn)
+            with trace.span("srvp.eval.gather"):
+                carry = {k: v.cpu().numpy() for k, v in carry.items()}
+                ranks = multihost.gather_to_primary(carry)
         if not primary:
             continue
         # the video axis: 1 for `random`, 0 elsewhere

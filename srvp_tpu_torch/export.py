@@ -57,6 +57,7 @@ import torch
 import torch.nn as nn
 
 from srvp_tpu_torch.config import cudnn_deterministic, no_tf32, resolve_device
+from srvp_tpu_torch.utils import trace
 
 MAGIC = b"SRVPTEX1"
 FORMAT = "srvp-tpu-torch serving export v1"
@@ -266,7 +267,11 @@ def load_serving(path, device="cuda"):
     (both set for the call alone), and returns the uint8 frames there;
     x_cond and seed may be numpy arrays, ints or tensors. Only
     kernels/ops.py is imported (to register the ops), not the model code.
-    It raises for a batch other than a pinned one."""
+    It raises for a batch other than a pinned one. A call is a
+    `srvp.serve.call` span (utils/trace.py) holding `srvp.serve.input`
+    (the frames' and the seed's copies to the device) and
+    `srvp.serve.module` (the program's host enqueue; the frames are not
+    waited for)."""
     from srvp_tpu_torch.kernels import ops  # noqa: F401  (the srvp ops)
     from torch.export.passes import move_to_device_pass
 
@@ -283,20 +288,26 @@ def load_serving(path, device="cuda"):
     shape = (header["nt_cond"], header["nx"], header["nx"], header["nc"])
 
     def fn(x_cond, seed):
-        x = torch.as_tensor(x_cond, dtype=torch.uint8, device=dev)
-        if x.dim() != 5 or (x.shape[0],) + tuple(x.shape[2:]) != shape:
-            raise ValueError(f"x_cond has shape {tuple(x.shape)}, expected "
-                             f"({shape[0]}, B, {shape[1]}, {shape[2]}, "
-                             f"{shape[3]})")
-        if header["batch"] != "symbolic" and x.shape[1] != header["batch"]:
-            raise ValueError(f"x_cond has batch {x.shape[1]}; the artifact "
-                             f"is pinned to {header['batch']}")
-        if header.get("max_batch") and x.shape[1] > header["max_batch"]:
-            raise ValueError(f"x_cond has batch {x.shape[1]}; the artifact "
-                             f"takes at most {header['max_batch']}")
-        s = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(())
-        with torch.no_grad(), cudnn_deterministic(), no_tf32():
-            return module(x, s)
+        with trace.span("srvp.serve.call"):
+            with trace.span("srvp.serve.input"):
+                x = torch.as_tensor(x_cond, dtype=torch.uint8, device=dev)
+                s = torch.as_tensor(seed, dtype=torch.int64,
+                                    device=dev).reshape(())
+            if x.dim() != 5 or (x.shape[0],) + tuple(x.shape[2:]) != shape:
+                raise ValueError(f"x_cond has shape {tuple(x.shape)}, "
+                                 f"expected ({shape[0]}, B, {shape[1]}, "
+                                 f"{shape[2]}, {shape[3]})")
+            if header["batch"] != "symbolic" and \
+                    x.shape[1] != header["batch"]:
+                raise ValueError(f"x_cond has batch {x.shape[1]}; the "
+                                 f"artifact is pinned to {header['batch']}")
+            if header.get("max_batch") and x.shape[1] > header["max_batch"]:
+                raise ValueError(f"x_cond has batch {x.shape[1]}; the "
+                                 f"artifact takes at most "
+                                 f"{header['max_batch']}")
+            with trace.span("srvp.serve.module"), torch.no_grad(), \
+                    cudnn_deterministic(), no_tf32():
+                return module(x, s)
 
     return fn, header
 

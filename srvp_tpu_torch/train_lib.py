@@ -35,6 +35,7 @@ from srvp_tpu_torch.models.srvp import SRVP
 from srvp_tpu_torch.objectives import elbo_loss
 from srvp_tpu_torch.ops.init import init_srvp_
 from srvp_tpu_torch.parallel import mesh, multihost
+from srvp_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,37 +152,46 @@ def loss_and_grads(model, x, hp, **noise):
     """ELBO and its parameter gradients (left in .grad) for one batch, the
     model in training mode. At more than one rank, noise drawn from a
     generator alone is the global batch's (training_draws), and the
-    gradients are averaged over the ranks (in any process group)."""
-    model.train()
-    model.zero_grad(set_to_none=True)
-    count = multihost.process_count()
-    if count > 1 and set(noise) == {"generator"}:
-        nt, bsz = batch_shape(x)
-        rank = multihost.process_index()
-        noise = training_draws(model.cfg, nt, bsz * count, hp.oversampling,
-                               noise["generator"], _leaves(x)[0].device,
-                               rows=(rank * bsz, (rank + 1) * bsz))
-    loss, aux = elbo_loss(model, x, oversampling=hp.oversampling,
-                          obs_scale=hp.obs_scale, beta_y=hp.beta_y,
-                          beta_z=hp.beta_z, l2_res=hp.l2_res,
-                          use_kernel=hp.use_kernel,
-                          compute_dtype=hp.compute_dtype, **noise)
-    loss.backward()
-    mesh.all_reduce_grads(model)
+    gradients are averaged over the ranks (in any process group). The
+    forward and the backward with the average are the spans
+    `srvp.train.forward` and `srvp.train.backward` (utils/trace.py)."""
+    with trace.span("srvp.train.forward"):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        count = multihost.process_count()
+        if count > 1 and set(noise) == {"generator"}:
+            nt, bsz = batch_shape(x)
+            rank = multihost.process_index()
+            noise = training_draws(model.cfg, nt, bsz * count,
+                                   hp.oversampling, noise["generator"],
+                                   _leaves(x)[0].device,
+                                   rows=(rank * bsz, (rank + 1) * bsz))
+        loss, aux = elbo_loss(model, x, oversampling=hp.oversampling,
+                              obs_scale=hp.obs_scale, beta_y=hp.beta_y,
+                              beta_z=hp.beta_z, l2_res=hp.l2_res,
+                              use_kernel=hp.use_kernel,
+                              compute_dtype=hp.compute_dtype, **noise)
+    with trace.span("srvp.train.backward"):
+        loss.backward()
+        mesh.all_reduce_grads(model)
     return loss, aux
 
 
 def train_step(ts, x, hp, **noise):
     """One optimisation step; returns the step's metrics as device
-    tensors (loss, nll, kl_y_0, kl_z, l2_res) and its learning rate."""
-    lr = ts.scheduler.get_last_lr()[0]
-    loss, aux = loss_and_grads(ts.model, x, hp, **noise)
-    ts.optimizer.step()
-    ts.scheduler.step()
-    ts.step += 1
-    metrics = {"loss": loss.detach(), "lr": lr}
-    metrics.update({k: v.detach() for k, v in aux._asdict().items()})
-    return metrics
+    tensors (loss, nll, kl_y_0, kl_z, l2_res) and its learning rate. The
+    step is a `srvp.train.step` span, Adam and the schedule's step within
+    it `srvp.train.optimizer`."""
+    with trace.span("srvp.train.step"):
+        lr = ts.scheduler.get_last_lr()[0]
+        loss, aux = loss_and_grads(ts.model, x, hp, **noise)
+        with trace.span("srvp.train.optimizer"):
+            ts.optimizer.step()
+            ts.scheduler.step()
+        ts.step += 1
+        metrics = {"loss": loss.detach(), "lr": lr}
+        metrics.update({k: v.detach() for k, v in aux._asdict().items()})
+        return metrics
 
 
 def _leaves(batch):

@@ -38,7 +38,10 @@ losses and weights as a run never stopped, given the same `--seed` (the
 data stream is seeded by it) and, on the card, cuDNN's deterministic
 algorithms (`torch.backends.cudnn.deterministic`). SIGTERM stops the run at the next step
 boundary, saves the train state and exits with 143. `--profile_dir DIR`
-writes a torch.profiler trace of steps 10-15 to DIR. `--config FILE`
+writes a torch.profiler trace of steps 10-15 to DIR; it carries the
+program's `srvp.*` spans (utils/trace.py) of the main thread beside the
+operators and kernels: the data wait and copy, the step's forward,
+backward and optimizer. `--config FILE`
 (configs/*.yaml) sets the flags' defaults; `--precision bfloat16` (or
 `--torch_amp`, `--apex_amp`) runs the encoder and decoder in bfloat16, the
 latent model and the loss in float32. The `.pt` model files are float32
@@ -81,6 +84,7 @@ from srvp_tpu_torch.data.loader import (PREFETCH, DataLoader, PartsView,
                                          infinite_batches)
 from srvp_tpu_torch.parallel import mesh, multihost
 from srvp_tpu_torch.utils import checkpoint as ckpt
+from srvp_tpu_torch.utils import trace
 from srvp_tpu_torch.utils.runtime import MetricsLogger
 
 PROFILE_STEPS = (10, 15)
@@ -134,14 +138,17 @@ def device_batches(loader, device, spd=1, start=0, n_iter=None):
     at a step on the spd-grid with a whole window before n_iter, spd
     batches stacked (stack_batches) and sent in one copy, width spd;
     otherwise one batch, width 1. The next item's copy is queued before
-    this one is handed out, so the host never waits for a transfer."""
+    this one is handed out, so the host never waits for a transfer. The
+    stacking, pinning and the copy's enqueue are a `srvp.data.to_device`
+    span (utils/trace.py)."""
     it = infinite_batches(loader)
 
     def fetch(i):
-        if spd > 1 and i % spd == 0 and i + spd <= n_iter:
-            return spd, to_device(stack_batches(
-                [next(it) for _ in range(spd)]), device)
-        return 1, to_device(next(it), device)
+        width = spd if spd > 1 and i % spd == 0 and i + spd <= n_iter else 1
+        host = [next(it) for _ in range(width)]
+        with trace.span("srvp.data.to_device"):
+            batch = stack_batches(host) if width > 1 else host[0]
+            return width, to_device(batch, device)
 
     i = start
     nxt = fetch(i)
